@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of bmhrl_tpu's greedy serving path for NVIDIA Hopper.
+
+The JAX package ``bmhrl_tpu`` is the reference and is never imported here.
+Entry points take a ``device`` argument: ``"cuda"`` by default (an error
+when no card is present), ``"cpu"`` for the plain PyTorch versions of the
+kernels, as the tests use."""
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``torch.device`` of ``device`` (a CUDA device with its index); raises
+    for CUDA without a card."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but no CUDA device is "
+                               "available; pass device='cpu' to run the "
+                               "plain versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,0 +1,86 @@
+"""Frozen SegmentCritic, decode surface: 4-layer LSTM(D -> 2D) -> AReLU ->
+2-layer GRU(2D) -> AReLU -> Linear(2D -> 1), stepped one token at a time
+(the port of ``init_state``/``step`` in bmhrl_tpu/models/critic.py).
+
+Parameters keep torch's RNN layout (w_ih (nG*H, in), gate order LSTM i,f,g,o
+and GRU r,z,n), which is also the JAX package's. Every cell runs through
+``ops.critic_kernels`` (a fused kernel per cell on the card), f32 throughout.
+The full-sequence scan belongs to the training path and is not ported here.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from bmhrl_tpu_torch.models.blocks import AReLU, Dense
+from bmhrl_tpu_torch.ops import critic_kernels as ck
+
+
+class _RNNLayer(nn.Module):
+    def __init__(self, n_gates: int, d_in: int, d_hidden: int, device=None):
+        super().__init__()
+        G = n_gates * d_hidden
+        self.weight_ih = nn.Parameter(torch.zeros(G, d_in, device=device))
+        self.weight_hh = nn.Parameter(torch.zeros(G, d_hidden, device=device))
+        self.bias_ih = nn.Parameter(torch.zeros(G, device=device))
+        self.bias_hh = nn.Parameter(torch.zeros(G, device=device))
+
+
+class LSTMLayer(_RNNLayer):
+    def __init__(self, d_in: int, d_hidden: int, device=None):
+        super().__init__(4, d_in, d_hidden, device)
+
+    def step(self, xt: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]):
+        h, c = ck.lstm_cell(xt, state[0], state[1], self.weight_ih,
+                            self.weight_hh, self.bias_ih + self.bias_hh)
+        return h, (h, c)
+
+
+class GRULayer(_RNNLayer):
+    def __init__(self, d_in: int, d_hidden: int, device=None):
+        super().__init__(3, d_in, d_hidden, device)
+
+    def step(self, xt: torch.Tensor, h: torch.Tensor):
+        h = ck.gru_cell(xt, h, self.weight_ih, self.weight_hh, self.bias_ih,
+                        self.bias_hh)
+        return h, h
+
+
+class SegmentCritic(nn.Module):
+    """Frozen segment-boundary detector (decode stepping only)."""
+
+    def __init__(self, d_model_caps: int = 300, device=None):
+        super().__init__()
+        D, H = d_model_caps, 2 * d_model_caps
+        self.d_hidden = H
+        for l in range(4):
+            self.add_module(f"lstm_l{l}",
+                            LSTMLayer(D if l == 0 else H, H, device))
+        for l in range(2):
+            self.add_module(f"gru_l{l}", GRULayer(H, H, device))
+        self.relu = AReLU(device=device)
+        self.relu2 = AReLU(device=device)
+        self.lin = Dense(H, 1, torch.float32, device)
+
+    def init_state(self, B: int) -> Dict[str, List]:
+        dev = self.lin.weight.device
+        z = torch.zeros(B, self.d_hidden, device=dev)
+        return {"lstm": [(z, z) for _ in range(4)], "gru": [z, z]}
+
+    def step(self, emb_t: torch.Tensor, state: Dict[str, List]):
+        """emb_t: (B, d_caps) scaled token embedding -> ((B, 1) logit, new
+        state)."""
+        h = emb_t.float().contiguous()
+        new_lstm = []
+        for l, st in enumerate(state["lstm"]):
+            h, st = getattr(self, f"lstm_l{l}").step(h, st)
+            new_lstm.append(st)
+        h = self.relu(h)
+        new_gru = []
+        for l, st in enumerate(state["gru"]):
+            h, st = getattr(self, f"gru_l{l}").step(h, st)
+            new_gru.append(st)
+        h = self.relu2(h)
+        return self.lin(h), {"lstm": new_lstm, "gru": new_gru}

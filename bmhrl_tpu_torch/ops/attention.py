@@ -1,0 +1,174 @@
+"""Attention kernels of the serving path: flash attention on un-headed
+projections (encoder) and folded attention against raw memories (decode).
+
+Each public function is a wrapper: for tensors on the CPU it runs the plain
+PyTorch version beside it (``*_plain``), for CUDA tensors it launches the
+hand-written kernel of ``csrc/`` or raises. The plain versions repeat the
+kernels' arithmetic, so the CPU tests hold them against the JAX package and
+``chip_smoke.py`` holds the kernels against them on the card.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from bmhrl_tpu_torch.ops import _cuda
+
+NEG_INF = -1e9
+# shortest key range that takes the flash kernel; shorter sites run the
+# plain headed path in the model (as in the JAX package)
+MIN_SK = 128
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_qualifies(Sk: int, d_k: int) -> bool:
+    """The JAX package's flash gate: long enough keys, head width a multiple
+    of 128 up to 512 (the head widths the kernel is built for)."""
+    return Sk >= MIN_SK and d_k % 128 == 0 and d_k <= 512
+
+
+def flash_attention_bsd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, mask: Optional[torch.Tensor],
+                              H: int, causal: bool = False) -> torch.Tensor:
+    """Plain version of ``flash_attention_bsd``: one-pass softmax in f32,
+    p rounded to the input type before PV, normalised after PV."""
+    B, Sq, HD = q.shape
+    Sk = k.shape[1]
+    d = HD // H
+
+    def heads(x):
+        return x.reshape(B, x.shape[1], H, d).transpose(1, 2).float()
+
+    s = heads(q) @ heads(k).transpose(-1, -2) * (1.0 / math.sqrt(d))
+    if mask is not None:
+        s = s.masked_fill(~(mask > 0)[:, None, None, :], NEG_INF)
+    if causal:
+        tri = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~tri, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    o = p.to(q.dtype).float() @ heads(v)
+    o = o / l.clamp_min(1e-30)
+    return o.transpose(1, 2).reshape(B, Sq, HD).to(q.dtype)
+
+
+def flash_attention_bsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: Optional[torch.Tensor], H: int,
+                        causal: bool = False) -> torch.Tensor:
+    """Fused attention on UN-headed (B, S, H*d) projections with a (B, Sk) key
+    mask (nonzero = attend). Returns (B, Sq, H*d) in q's dtype. A
+    fully-masked row gives mean(V) over the Sk actual keys.
+
+    The inputs may be views with any batch and row strides (the model passes
+    column slices of one merged QKV projection) but unit stride along the
+    last axis."""
+    if q.device.type == "cpu":
+        return flash_attention_bsd_plain(q, k, v, mask, H, causal)
+    what = "flash_attention_bsd"
+    _cuda.require_cuda(what, q, k, v)
+    B, Sq, HD = q.shape
+    Sk = k.shape[1]
+    if k.shape != (B, Sk, HD) or v.shape != (B, Sk, HD):
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{what}: q/k/v must share float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if HD % H or (HD // H) not in (128, 256, 384, 512):
+        raise ValueError(f"{what}: head width {HD}/{H} not in 128..512 step "
+                         "128")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"{what}: the last axis must have unit stride")
+    if mask is None:
+        mask = torch.ones(B, Sk, dtype=torch.int32, device=q.device)
+    else:
+        if mask.shape != (B, Sk):
+            raise ValueError(f"{what}: mask {tuple(mask.shape)} != {(B, Sk)}")
+        _cuda.require_cuda(what, q, mask)
+        mask = mask.to(torch.int32).contiguous()
+    out = torch.empty(B, Sq, HD, dtype=q.dtype, device=q.device)
+    d = HD // H
+    lib = _flash_lib()
+    err = lib.bmhrl_flash_attention(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), B, Sq, Sk, H, d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1), 1.0 / math.sqrt(d), int(causal), _cuda.stream_of(q))
+    _cuda.check(lib, err, what)
+    _cuda.LAUNCHES["flash_attention_bsd"] += 1
+    return out
+
+
+def folded_attend_plain(q_eff: torch.Tensor, mem: torch.Tensor,
+                        mask: Optional[torch.Tensor],
+                        scale: float) -> torch.Tensor:
+    """Plain version of ``folded_attend``: f32 throughout, q pre-scaled,
+    normalised after the context product."""
+    q = q_eff.float() * scale
+    m = mem.float()
+    s = q @ m.transpose(1, 2)
+    if mask is not None:
+        s = s.masked_fill(~(mask > 0)[:, None, :], NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return (p @ m) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+def folded_attend(q_eff: torch.Tensor, mem: torch.Tensor,
+                  mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """Decode-side folded attention: q_eff (B, G, draw) effective queries
+    (K-projection folded in), mem (B, S, draw) raw memory, mask (B, S)
+    (nonzero = attend) or None. Returns softmax(scale q memᵀ) mem as
+    (B, G, draw) f32; a fully-masked row gives mean(mem) over its own S
+    keys."""
+    if q_eff.device.type == "cpu":
+        return folded_attend_plain(q_eff, mem, mask, scale)
+    what = "folded_attend"
+    _cuda.require_cuda(what, q_eff, mem)
+    B, G, draw = q_eff.shape
+    S = mem.shape[1]
+    if mem.shape != (B, S, draw):
+        raise ValueError(f"{what}: mem {tuple(mem.shape)} does not match "
+                         f"q_eff {tuple(q_eff.shape)}")
+    if mem.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what}: mem must be float32 or bfloat16")
+    if mask is None:
+        mask = torch.ones(B, S, dtype=torch.int32, device=mem.device)
+    else:
+        if mask.shape != (B, S):
+            raise ValueError(f"{what}: mask {tuple(mask.shape)} != {(B, S)}")
+        _cuda.require_cuda(what, mem, mask)
+        mask = mask.to(torch.int32).contiguous()
+    q = (q_eff.float() * scale).contiguous()
+    mem = mem.contiguous()
+    out = torch.empty(B, G, draw, dtype=torch.float32, device=mem.device)
+    lib = _folded_lib()
+    err = lib.bmhrl_folded_attend(
+        _DTYPE_CODE[mem.dtype], q.data_ptr(), mem.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), B, G, S, draw, _cuda.stream_of(mem))
+    _cuda.check(lib, err, f"{what} (B={B}, G={G}, S={S}, draw={draw})")
+    _cuda.LAUNCHES["folded_attend"] += 1
+    return out
+
+
+def _flash_lib():
+    lib = _cuda.library("flash_attention")
+    fn = lib.bmhrl_flash_attention
+    if fn.argtypes is None:
+        P, I, I64, F = _cuda.P, _cuda.I, _cuda.I64, _cuda.F
+        fn.argtypes = [I, P, P, P, P, P, I, I, I, I, I,
+                       I64, I64, I64, I64, I64, I64, F, I, P]
+        fn.restype = I
+    return lib
+
+
+def _folded_lib():
+    lib = _cuda.library("folded_attention")
+    fn = lib.bmhrl_folded_attend
+    if fn.argtypes is None:
+        P, I = _cuda.P, _cuda.I
+        fn.argtypes = [I, P, P, P, P, I, I, I, I, P]
+        fn.restype = I
+    return lib

@@ -1,0 +1,112 @@
+"""Weights in the JAX package's layout: load a flax variable tree into the
+port, or make a random one from a numpy seed.
+
+The port's module and parameter names follow the flax param tree, so the map
+is by rule: a path ``a/b/c/leaf`` of the tree is the parameter ``a.b.c.X``,
+where X depends on the owning module:
+
+- ``Dense`` (an ``nn.Linear``): ``kernel`` (in, out) <-> ``weight`` (out, in),
+  transposed; ``bias`` <-> ``bias``;
+- ``nn.LayerNorm``: ``scale`` <-> ``weight``; ``bias`` <-> ``bias``;
+- ``nn.Embedding``: ``embedding`` <-> ``weight``;
+- anything else (critic RNN weights, already in torch layout; AReLU
+  ``alpha``/``beta``; ``a_v_constant``): the same name.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_LEAF = {nn.Linear: {"weight": "kernel", "bias": "bias"},
+         nn.LayerNorm: {"weight": "scale", "bias": "bias"},
+         nn.Embedding: {"weight": "embedding"}}
+
+
+def _flax_paths(model: nn.Module
+                ) -> Iterator[Tuple[Tuple[str, ...], nn.Parameter, bool]]:
+    """(flax path under "params", torch parameter, transposed) for every
+    parameter of ``model``."""
+    for mod_name, mod in model.named_modules():
+        rename = next((m for t, m in _LEAF.items() if isinstance(mod, t)), {})
+        for leaf, p in mod.named_parameters(recurse=False):
+            path = tuple(mod_name.split(".")) if mod_name else ()
+            yield (path + (rename.get(leaf, leaf),), p,
+                   isinstance(mod, nn.Linear) and leaf == "weight")
+
+
+def _flatten(tree: Dict, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+@torch.no_grad()
+def load_jax_params(model: nn.Module, tree: Dict) -> nn.Module:
+    """Copy a flax variable tree ``{"params": ...}`` (nested dicts of arrays)
+    into ``model``. Strict: every parameter is loaded, every leaf is used and
+    every shape agrees."""
+    leaves = _flatten(tree["params"])
+    seen = set()
+    for path, p, transposed in _flax_paths(model):
+        if path not in leaves:
+            raise KeyError(f"missing from the tree: {'/'.join(path)}")
+        arr = np.asarray(leaves[path], dtype=np.float32)
+        if transposed:
+            arr = arr.T
+        if arr.shape != tuple(p.shape):
+            raise ValueError(f"{'/'.join(path)}: tree {arr.shape} vs model "
+                             f"{tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(arr)))
+        seen.add(path)
+    extra = sorted("/".join(k) for k in leaves if k not in seen)
+    if extra:
+        raise KeyError(f"tree leaves the model has no place for: {extra}")
+    return model
+
+
+def random_jax_layout_params(dims: Dict, seed: int = 0) -> Dict:
+    """A random flax-layout tree ``{"params": ...}`` of numpy f32 arrays with
+    the keys and shapes that ``BMHrlAgent(**dims).init`` gives in the JAX
+    package. Scales follow the flax initialisers (lecun-normal kernels,
+    unit-normal embedding, torch-RNN uniform critic weights, AReLU and gate
+    constants at their init values); biases and LayerNorm parameters get
+    small random values so that a loader that drops them shows."""
+    from bmhrl_tpu_torch.models.bmhrl import BMHrlAgent
+
+    rng = np.random.RandomState(seed)
+    shapes = BMHrlAgent(**dims, device="meta")
+    tree: Dict = {}
+    for path, p, transposed in _flax_paths(shapes):
+        shape = tuple(p.shape)[::-1] if transposed else tuple(p.shape)
+        leaf = path[-1]
+        if leaf == "kernel":
+            arr = rng.randn(*shape) / np.sqrt(shape[0])
+        elif leaf == "embedding":
+            arr = rng.randn(*shape)
+        elif leaf.startswith(("weight_", "bias_")):
+            bound = 1.0 / np.sqrt(max(shape[0] // 4, 1))
+            arr = rng.uniform(-bound, bound, shape)
+        elif leaf == "scale":
+            arr = 1.0 + 0.1 * rng.randn(*shape)
+        elif leaf == "bias":
+            arr = 0.02 * rng.randn(*shape)
+        elif leaf == "alpha":
+            arr = np.full(shape, 0.9)
+        elif leaf == "beta":
+            arr = np.full(shape, 2.0)
+        elif leaf == "a_v_constant":
+            arr = 0.5 * rng.randn(*shape)
+        else:
+            raise KeyError(f"no initialiser for {'/'.join(path)}")
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[leaf] = arr.astype(np.float32)
+    return {"params": tree}

@@ -1,0 +1,615 @@
+"""Drive the PyTorch/CUDA port (bmhrl_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises at its first failure:
+
+1. build: compile every kernel of csrc/ (one nvcc per source, in parallel);
+2. kernels: each kernel at the flagship's shapes against its plain PyTorch
+   version on the same card inputs, in f32 and bf16 (the critic cells are
+   f32 only), with timings of the kernel, the plain version, one PyTorch
+   library call computing the same function, and the card's bound;
+3. reference: a small f32 model decoded on the card through the kernels
+   and on the CPU through the plain versions: identical tokens, and
+   probabilities within 1e-4;
+4. serve: the flagship BMHrlAgent (Config's dims, vocabulary 10172, bf16,
+   random weights from a seed loaded through the JAX-layout loader)
+   answers 64 requests written as .npy files, across several bucket pairs
+   with padded tail batches and one clip without features, through
+   CaptionServer.caption. This is the main path: the launch counts are
+   zeroed just before it and read just after, and every kernel must have
+   launched. Then clips/s of greedy decode at B=32 and B=256 (Sv=128,
+   Sa=256, 30 tokens), the per-step token agreement of the kernels and the
+   plain versions fed the same tokens, and a profile of one B=256 decode.
+
+Prints the card's name and power limit first, one JSON line per measurement,
+a ``kernels`` line, and last the line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Exits non-zero without that line when there is no CUDA device or the
+package is missing. Needs no network; stops every process it starts.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from contextlib import contextmanager
+from unittest import mock
+
+import numpy as np
+
+# the port's peak rates on one H100 SXM (dense; NVIDIA data sheet)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+
+VOC = 10172  # the flagship's vocabulary; its other dims are Config's
+SMALL = dict(voc_size=40, d_video=128, d_audio=128, d_model=256,
+             d_model_caps=32, att_heads=2, att_layers=2, d_goal=16,
+             d_ff_v=64, d_ff_a=64, d_ff_c=64)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds of fn() over ``iters`` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, ops: float, kind: str):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class Kernel:
+    """Accumulates one kernel's line of the final ``kernels`` record. Its
+    times sum the calls of one unit of the main path at B=256, Sv=128,
+    Sa=256: flash, the four encoder sites of one layer (bf16); folded, the
+    audio and video calls of one layer's token step (bf16 memory); LSTM,
+    the four cells of one token; GRU, the two cells of one token (f32)."""
+
+    def __init__(self, name, source, replaces):
+        self.rec = dict(name=name, route="cuda", source=source,
+                        replaces=replaces, launches=0, max_abs_err=0.0,
+                        ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by="",
+                        library_ms=0.0)
+        self._bytes_ms = self._ops_ms = 0.0
+
+    def add_main_shape(self, ms, plain_ms, library_ms, nbytes, ops, kind):
+        """Add one call at the main path's shape to the summed times."""
+        r = self.rec
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["library_ms"] += library_ms
+        self._bytes_ms += nbytes / PEAK_BYTES * 1e3
+        self._ops_ms += ops / PEAK_OPS[kind] * 1e3
+        r["bound_ms"] = max(self._bytes_ms, self._ops_ms)
+        r["bound_by"] = ("bytes" if self._bytes_ms >= self._ops_ms
+                         else "operations")
+
+    def err(self, e):
+        self.rec["max_abs_err"] = max(self.rec["max_abs_err"], e)
+
+
+def check_close(name, got, want, tol):
+    err = float((got.float() - want.float()).abs().max())
+    if not math.isfinite(err) or err > tol:
+        raise AssertionError(f"{name}: max abs err {err} > tol {tol}")
+    return err
+
+
+# --------------------------------------------------------------------------
+def phase_kernels(K):
+    import torch
+    import torch.nn.functional as Fn
+
+    from bmhrl_tpu_torch.ops import attention as att
+    from bmhrl_tpu_torch.ops import critic_kernels as ck
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    # ---- flash attention: the 4 encoder sites of one layer at the serving
+    # shape (main path), the long-source shape, and edge cases
+    H, d = 4, 256
+    HD = H * d
+    B = 256
+    main_sites = [("V<-V", 128, 128), ("A<-A", 256, 256), ("V<-A", 128, 256),
+                  ("A<-V", 256, 128)]
+    long_sites = [("V<-A long", 300, 800), ("A<-A long", 800, 800)]
+    for site, Sq, Sk in main_sites + long_sites:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(B, Sq, HD, dtype=dtype)
+            k = randn(B, Sk, HD, dtype=dtype)
+            v = randn(B, Sk, HD, dtype=dtype)
+            lens = torch.randint(Sk // 2, Sk + 1, (B,), generator=g,
+                                 device=dev)
+            mask = torch.arange(Sk, device=dev)[None] < lens[:, None]
+            mask[1] = False  # one fully-masked row
+            got = att.flash_attention_bsd(q, k, v, mask, H)
+            want = att.flash_attention_bsd_plain(q, k, v, mask, H)
+            torch.cuda.synchronize()
+            e = check_close(f"flash {site} {TAG[dtype]}", got, want,
+                            TOL[dtype])
+            K["flash"].err(e)
+            ms = time_ms(lambda: att.flash_attention_bsd(q, k, v, mask, H))
+            pms = time_ms(lambda: att.flash_attention_bsd_plain(
+                q, k, v, mask, H), iters=5)
+            qh, kh, vh = (x.view(B, -1, H, d).transpose(1, 2)
+                          for x in (q, k, v))
+            m4 = mask[:, None, None, :]
+            lms = time_ms(lambda: Fn.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=m4))
+            isz = q.element_size()
+            nbytes = (2 * B * Sq * HD + 2 * B * Sk * HD) * isz + B * Sk * 4
+            ops = 4.0 * B * H * Sq * Sk * d
+            kind = TAG[dtype]
+            bms, by = bound_ms(nbytes, ops, kind)
+            emit({"kernel": "flash_attention_bsd", "case": site, "B": B,
+                  "Sq": Sq, "Sk": Sk, "H": H, "d": d, "dtype": kind,
+                  "max_abs_err": e, "tol": TOL[dtype], "kernel_ms": ms,
+                  "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+                  "bound_by": by})
+            if dtype == torch.bfloat16 and "long" not in site:
+                K["flash"].add_main_shape(ms, pms, lms, nbytes, ops, kind)
+            del q, k, v, got, want
+    # edge cases: ragged Sk not a multiple of the key tile, causal, no mask
+    for Sq, Sk, causal, use_mask in ((37, 130, False, True),
+                                     (300, 300, True, True),
+                                     (64, 129, False, False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (randn(4, s, HD, dtype=dtype) for s in (Sq, Sk, Sk))
+            mask = None
+            if use_mask:
+                mask = torch.rand(4, Sk, generator=g, device=dev) > 0.3
+                mask[2] = False
+            got = att.flash_attention_bsd(q, k, v, mask, H, causal)
+            want = att.flash_attention_bsd_plain(q, k, v, mask, H, causal)
+            torch.cuda.synchronize()
+            e = check_close("flash edge", got, want, TOL[dtype])
+            K["flash"].err(e)
+            emit({"kernel": "flash_attention_bsd", "case": "edge",
+                  "Sq": Sq, "Sk": Sk, "causal": causal, "mask": use_mask,
+                  "dtype": TAG[dtype], "max_abs_err": e, "tol": TOL[dtype]})
+
+    # ---- folded attention: both branches of one layer-step (G = 2 stacks x
+    # 4 heads) at the serving shape, and the long-source shape
+    G = 8
+    scale = 1.0 / math.sqrt(d)
+    for case, S, draw in (("V", 128, 1024), ("A", 256, 128),
+                          ("V long", 300, 1024), ("A long", 800, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            qe = randn(B, G, draw, scale=0.05)
+            mem = randn(B, S, draw, dtype=dtype)
+            lens = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+            mask = (torch.arange(S, device=dev)[None] < lens[:, None])
+            mask[3] = False
+            mask_i = mask.to(torch.int32)
+            got = att.folded_attend(qe, mem, mask_i, scale)
+            want = att.folded_attend_plain(qe, mem, mask_i, scale)
+            torch.cuda.synchronize()
+            # a fully-masked row is mean(mem) over its own S keys
+            mean_err = check_close("folded masked row", got[3],
+                                   mem[3].float().mean(0).expand(G, -1),
+                                   1e-4)
+            e = max(check_close(f"folded {case} {TAG[dtype]}", got, want,
+                                1e-4), mean_err)
+            K["folded"].err(e)
+            ms = time_ms(lambda: att.folded_attend(qe, mem, mask_i, scale))
+            pms = time_ms(lambda: att.folded_attend_plain(
+                qe, mem, mask_i, scale))
+            neg = torch.zeros(B, 1, S, device=dev, dtype=dtype).masked_fill(
+                ~mask[:, None, :], -1e9)
+
+            def library():
+                s = torch.matmul((qe * scale).to(dtype), mem.transpose(1, 2))
+                p = torch.softmax((s + neg).float(), dim=-1)
+                return torch.matmul(p.to(dtype), mem)
+
+            lms = time_ms(library)
+            nbytes = (2 * B * G * draw * 4 + B * S * draw * mem.element_size()
+                      + B * S * 4)
+            ops = 4.0 * B * G * S * draw
+            bms, by = bound_ms(nbytes, ops, "f32")
+            emit({"kernel": "folded_attend", "case": case, "B": B, "G": G,
+                  "S": S, "draw": draw, "dtype": TAG[dtype],
+                  "max_abs_err": e, "tol": 1e-4, "kernel_ms": ms,
+                  "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+                  "bound_by": by})
+            if dtype == torch.bfloat16 and "long" not in case:
+                K["folded"].add_main_shape(ms, pms, lms, nbytes, ops, "f32")
+
+    # ---- critic cells: the 4 LSTM and 2 GRU cells of one token (f32)
+    Hc = 600
+    for name, n_gates, Kin, layers in (("lstm_cell", 4, 300, 1),
+                                       ("lstm_cell", 4, 600, 3),
+                                       ("gru_cell", 3, 600, 2)):
+        bound = 1.0 / math.sqrt(Hc)
+        x = randn(B, Kin)
+        h = randn(B, Hc, scale=0.5)
+        c = randn(B, Hc, scale=0.5)
+        w_ih = randn(n_gates * Hc, Kin, scale=bound)
+        w_hh = randn(n_gates * Hc, Hc, scale=bound)
+        b_ih = randn(n_gates * Hc, scale=bound)
+        b_hh = randn(n_gates * Hc, scale=bound)
+        if name == "lstm_cell":
+            b_sum = b_ih + b_hh
+            got = ck.lstm_cell(x, h, c, w_ih, w_hh, b_sum)
+            want = ck.lstm_cell_plain(x, h, c, w_ih, w_hh, b_sum)
+            e = max(check_close("lstm h", got[0], want[0], 1e-5),
+                    check_close("lstm c", got[1], want[1], 1e-5))
+            run = lambda: ck.lstm_cell(x, h, c, w_ih, w_hh, b_sum)  # noqa
+            plain = lambda: ck.lstm_cell_plain(x, h, c, w_ih, w_hh, b_sum)  # noqa
+            cell = torch.nn.LSTMCell(Kin, Hc, device=dev)
+            out_elems = 2 * B * Hc
+            in_elems = B * (Kin + 2 * Hc)
+        else:
+            got = ck.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh)
+            want = ck.gru_cell_plain(x, h, w_ih, w_hh, b_ih, b_hh)
+            e = check_close("gru h", got, want, 1e-5)
+            run = lambda: ck.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh)  # noqa
+            plain = lambda: ck.gru_cell_plain(x, h, w_ih, w_hh, b_ih, b_hh)  # noqa
+            cell = torch.nn.GRUCell(Kin, Hc, device=dev)
+            out_elems = B * Hc
+            in_elems = B * (Kin + Hc)
+        with torch.no_grad():
+            cell.weight_ih.copy_(w_ih)
+            cell.weight_hh.copy_(w_hh)
+            cell.bias_ih.copy_(b_ih)
+            cell.bias_hh.copy_(b_hh)
+            want_lib = (cell(x, (h, c))[0] if name == "lstm_cell"
+                        else cell(x, h))
+            check_close(f"{name} vs torch.nn cell", want_lib,
+                        want[0] if name == "lstm_cell" else want, 1e-5)
+            lms = time_ms(lambda: cell(x, (h, c)) if name == "lstm_cell"
+                          else cell(x, h))
+        K[name].err(e)
+        ms = time_ms(run)
+        pms = time_ms(plain)
+        nbytes = 4.0 * (n_gates * Hc * (Kin + Hc) + 2 * n_gates * Hc
+                        + in_elems + out_elems)
+        ops = 2.0 * B * n_gates * Hc * (Kin + Hc)
+        bms, by = bound_ms(nbytes, ops, "f32")
+        emit({"kernel": name, "case": f"K={Kin} x{layers} per token", "B": B,
+              "K": Kin, "H": Hc, "dtype": "f32", "max_abs_err": e,
+              "tol": 1e-5, "kernel_ms": ms, "plain_ms": pms,
+              "library_ms": lms, "bound_ms": bms, "bound_by": by})
+        for _ in range(layers):
+            K[name].add_main_shape(ms, pms, lms, nbytes, ops, "f32")
+
+
+# --------------------------------------------------------------------------
+def build_model(kwargs, device, seed=0):
+    """A ``BMHrlAgent(**kwargs)`` on ``device`` with random weights from
+    ``seed``, loaded through the JAX-layout loader."""
+    from bmhrl_tpu_torch.models.bmhrl import BMHrlAgent
+    from bmhrl_tpu_torch.weights import (load_jax_params,
+                                         random_jax_layout_params)
+
+    model = BMHrlAgent(**kwargs, device=device)
+    load_jax_params(model, random_jax_layout_params(kwargs, seed))
+    return model.eval().requires_grad_(False)
+
+
+def make_feats(B, Sv, Sa, d_v, d_a, device, seed=0):
+    import torch
+
+    rng = np.random.RandomState(seed)
+    f = {"rgb": rng.rand(B, Sv, d_v), "flow": rng.rand(B, Sv, d_v),
+         "audio": rng.rand(B, Sa, d_a)}
+    return {k: torch.tensor(v, dtype=torch.float32, device=device)
+            for k, v in f.items()}
+
+
+def phase_reference():
+    """Small f32 model: kernels on the card vs plain versions on the CPU."""
+    import torch
+
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.train.decode import decode
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(dict(SMALL, dtype=torch.float32), device, seed=3)
+        feats = make_feats(8, 128, 160, 128, 128, device, seed=3)
+        feats["audio"][2, 90:] = 0.0     # ragged audio
+        feats["rgb"][5] = 0.0            # a zero-feature (fully masked) row
+        tok, prob = decode(model, feats, make_masks(feats), 12, 2, 3, 1)
+        out[device] = (tok.cpu(), prob.cpu())
+    same = bool(torch.equal(out["cuda"][0], out["cpu"][0]))
+    perr = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    emit({"phase": "reference", "dims": "small", "dtype": "f32",
+          "tokens_identical": same, "prob_max_abs_err": perr, "tol": 1e-4})
+    if not same or perr > 1e-4:
+        raise AssertionError("card decode disagrees with the CPU reference")
+
+
+@contextmanager
+def plain_kernels():
+    """Route the model's kernel calls to the plain versions (for comparing
+    a whole decode on the card)."""
+    from bmhrl_tpu_torch.ops import attention as att
+    from bmhrl_tpu_torch.ops import critic_kernels as ck
+
+    with mock.patch.object(att, "flash_attention_bsd",
+                           att.flash_attention_bsd_plain), \
+            mock.patch.object(att, "folded_attend", att.folded_attend_plain), \
+            mock.patch.object(ck, "lstm_cell", ck.lstm_cell_plain), \
+            mock.patch.object(ck, "gru_cell", ck.gru_cell_plain):
+        yield
+
+
+def write_requests(root, seed=0):
+    """64 requests as .npy files under ``root``: 40 in the (128, 256)
+    bucket pair (a full batch of 32 and a tail of 8), 12 in (224, 512) and
+    11 in (300, 800) (tails padded to 16 with zero rows), and one with no
+    feature files (zero features: fully masked)."""
+    from bmhrl_tpu_torch.serve import ClipRequest
+
+    rng = np.random.RandomState(seed)
+    vdir, adir = os.path.join(root, "i3d"), os.path.join(root, "vggish")
+    os.makedirs(vdir)
+    os.makedirs(adir)
+    reqs = []
+    for i in range(64):
+        vid = f"v{i:03d}"
+        Tv, Ta = (100, 240) if i <= 40 else (200, 500) if i <= 52 \
+            else (300, 800)
+        if i != 7:
+            for kind in ("rgb", "flow"):
+                np.save(os.path.join(vdir, f"{vid}_{kind}.npy"),
+                        rng.rand(Tv, 1024).astype(np.float32))
+            np.save(os.path.join(adir, f"{vid}.npy"),
+                    rng.rand(Ta, 128).astype(np.float32))
+        reqs.append(ClipRequest(vid, 0.0, 10.0, 10.0))
+    return vdir, adir, reqs
+
+
+def phase_serve(K):
+    import torch
+
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import BOS, PAD, SPECIALS
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.serve import CaptionServer
+    from bmhrl_tpu_torch.train.decode import decode
+
+    cfg = Config()  # the flagship: d_model 1024, 4 heads, 2 layers, bf16
+    t0 = time.perf_counter()
+    model = build_model(cfg.agent_kwargs(VOC), "cuda")
+    emit({"phase": "serve", "model_build_s": time.perf_counter() - t0,
+          "params": sum(p.numel() for p in model.parameters())})
+    itos = SPECIALS + [f"w{i}" for i in range(VOC - 4)]
+
+    with tempfile.TemporaryDirectory() as root:
+        vdir, adir, reqs = write_requests(root)
+        cfg = cfg.replace(video_features_path=vdir, audio_features_path=adir)
+        server = CaptionServer(cfg, model, itos, device="cuda")
+        server.caption(reqs[:3], batch_size=32)  # warm-up
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        preds, stats = server.caption(reqs, batch_size=32)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    sents = [s["sentence"] for segs in preds["results"].values()
+             for s in segs]
+    emit({"phase": "serve", "requests": len(reqs), "answered": len(sents),
+          "empty": sum(1 for s in sents if not s),
+          "stats": stats.summary(), "launches": launches,
+          "example": sents[:3]})
+    if len(sents) != len(reqs) or not all(sents):
+        raise AssertionError("a request got no sentence")
+    if stats.padded_rows == 0:
+        raise AssertionError("the run had no padded tail batch")
+    for name, n in launches.items():
+        K[name].rec["launches"] = n
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+
+    # greedy decode throughput at the bench's serving shapes (full 30
+    # tokens: end_idx -1 never stops early, as bench.py measures)
+    for B in (32, 256):
+        feats = make_feats(B, 128, 256, 1024, 128, "cuda", seed=B)
+        masks = make_masks(feats)
+        run = lambda: decode(model, feats, masks, 30, BOS, -1, PAD)  # noqa
+        run()
+        samples = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            samples.append(B / (time.perf_counter() - t))
+        emit({"phase": "throughput", "B": B, "Sv": 128, "Sa": 256,
+              "max_len": 30, "clips_per_s": statistics.median(samples),
+              "samples": samples})
+
+    # the same decode through the plain versions on the card
+    feats = make_feats(64, 128, 256, 1024, 128, "cuda", seed=7)
+    masks = make_masks(feats)
+    tok_k, prob_k = decode(model, feats, masks, 30, BOS, -1, PAD)
+    with plain_kernels():
+        tok_p, prob_p = decode(model, feats, masks, 30, BOS, -1, PAD)
+    if not torch.isfinite(prob_k).all() or prob_k[:, 1:].min() <= 0:
+        raise AssertionError("non-finite or zero chosen-token probabilities")
+    free = float((tok_k == tok_p).float()[:, 1:].mean())
+    forced, regret = forced_agreement(model, feats, masks, tok_p)
+    emit({"phase": "plain_vs_kernels", "B": 64, "dtype": "bf16",
+          "token_agreement": forced, "min_required": 0.95,
+          "max_logprob_gap_where_they_differ": regret,
+          "free_running_token_agreement": free})
+    if forced < 0.95:
+        raise AssertionError(f"token agreement {forced} < 0.95")
+    profile_decode(model)
+
+
+def forced_agreement(model, feats, masks, tokens):
+    """Per-step argmax agreement of the kernel and plain decode steps fed
+    the same tokens (the plain run's). A free-running comparison lets one
+    bf16 near-tie change every later token of its row; feeding both the
+    same tokens counts each step once. Also returns the largest log-prob
+    gap, under the kernel path, between the two choices where they differ
+    (small: the flips are near-ties)."""
+    import torch
+
+    from bmhrl_tpu_torch.train.decode import _fast_setup
+
+    B, L = tokens.shape
+    V = feats["rgb"] + feats["flow"]
+    with torch.no_grad():
+        mem_k = model.encode(V, feats["audio"], masks)
+        with plain_kernels():
+            mem_p = model.encode(V, feats["audio"], masks)
+        ck, vk, step_k = _fast_setup(model, *mem_k, masks, B, L)
+        cp, vp, step_p = _fast_setup(model, *mem_p, masks, B, L)
+        same, regret = [], 0.0
+        for t in range(L - 1):
+            tok_t = tokens[:, t]
+            for valid in (vk, vp):
+                valid[:, t] = tok_t != 1
+                valid[:, 0] = True
+            lk, ck = step_k(tok_t, t, ck, vk)
+            with plain_kernels():
+                lp, cp = step_p(tok_t, t, cp, vp)
+            ak, ap = lk.argmax(-1), lp.argmax(-1)
+            same.append(ak == ap)
+            gap = lk.gather(1, ak[:, None]) - lk.gather(1, ap[:, None])
+            regret = max(regret, float(gap.max()))
+    return float(torch.stack(same).float().mean()), regret
+
+
+def profile_decode(model, B=256):
+    """Device time of one greedy decode (B=256, Sv=128, Sa=256, 30 tokens)
+    by kernel group, and the device's busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bmhrl_tpu_torch.data.vocab import BOS, PAD
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.train.decode import decode
+
+    feats = make_feats(B, 128, 256, 1024, 128, "cuda", seed=11)
+    masks = make_masks(feats)
+    decode(model, feats, masks, 30, BOS, -1, PAD)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode(model, feats, masks, 30, BOS, -1, PAD)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"flash_kernel": 0.0, "folded_kernel": 0.0, "cell_kernel": 0.0,
+              "gemm": 0.0, "other": 0.0}
+    launches = 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        launches += evt.count
+        name = evt.key.lower()
+        key = next((g for g in ("flash_kernel", "folded_kernel",
+                                "cell_kernel") if g in name), None)
+        if key is None:
+            key = "gemm" if ("gemm" in name or "sm90" in name
+                             or "cutlass" in name) else "other"
+        groups[key] += us / 1e3
+    busy = sum(groups.values())
+    emit({"phase": "profile", "B": B, "Sv": 128, "Sa": 256, "tokens": 30,
+          "wall_ms": wall_ms, "device_ms": groups, "device_busy_ms": busy,
+          "device_idle_share": (1 - busy / wall_ms) if busy else None,
+          "device_launches": launches,
+          "note": None if busy else "not measured: no device time traced"})
+
+
+# --------------------------------------------------------------------------
+def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device")
+        return 2
+    try:
+        from bmhrl_tpu_torch.ops import _cuda
+    except ImportError as e:
+        log(f"chip_smoke: the bmhrl_tpu_torch package is missing ({e})")
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip(), flush=True)
+    # exact f32 products everywhere (the defaults, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0)})
+
+    build_s = _cuda.build()
+    emit({"phase": "build", "build_s": build_s,
+          "ptxas": {n: [ln for ln in (_cuda.BUILD_DIR / f"{n}.log")
+                        .read_text().splitlines() if "registers" in ln]
+                    for n in _cuda.SOURCES
+                    if (_cuda.BUILD_DIR / f"{n}.log").exists()}})
+
+    src = "bmhrl_tpu_torch/csrc/"
+    K = {"flash": Kernel("flash_attention_bsd", src + "flash_attention.cu",
+                         "bmhrl_tpu/ops/attention.py:89 (+ :269)"),
+         "folded": Kernel("folded_attend", src + "folded_attention.cu",
+                          "bmhrl_tpu/ops/attention.py:568"),
+         "lstm_cell": Kernel("lstm_cell", src + "critic_cells.cu",
+                             "bmhrl_tpu/ops/critic_kernels.py:64"),
+         "gru_cell": Kernel("gru_cell", src + "critic_cells.cu",
+                            "bmhrl_tpu/ops/critic_kernels.py:87")}
+    K["flash_attention_bsd"] = K["flash"]
+    K["folded_attend"] = K["folded"]
+
+    for name, phase in (("kernels", lambda: phase_kernels(K)),
+                        ("reference", phase_reference),
+                        ("serve", lambda: phase_serve(K))):
+        t0 = time.perf_counter()
+        log(f"chip_smoke: phase {name}")
+        phase()
+        torch.cuda.synchronize()
+        emit({"phase": name, "seconds": time.perf_counter() - t0})
+
+    kernels = [K[n].rec for n in ("flash", "folded", "lstm_cell", "gru_cell")]
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
