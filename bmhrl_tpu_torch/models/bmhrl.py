@@ -271,11 +271,12 @@ class BMHrlAgent(nn.Module):
             "hb": torch.zeros(B, dtype=torch.bool, device=dev),
         }
 
-    def decode_step_head(self, tok_t, t: int, crit_state):
+    def decode_step_head(self, tok_t, t: int, crit_state, crit_w):
         """Embed token t, advance the frozen critic one step, position-encode.
+        ``crit_w``: the critic's ``step_weights()``, packed once per decode.
         Returns (c_t (B, 1, Dc) compute dtype, label_t (B,) int, state)."""
         emb_t = self.emb_C(tok_t[:, None])
-        score_t, crit = self.critic.step(emb_t[:, 0], crit_state)
+        score_t, crit = self.critic.step(emb_t[:, 0], crit_state, crit_w)
         label_t = (torch.sigmoid(score_t[:, 0])
                    > self.critic_score_threshold).to(torch.int32)
         c_t = (emb_t + self.pos_enc_C.table[t]).to(self.dtype)

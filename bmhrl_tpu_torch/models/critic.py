@@ -4,12 +4,13 @@
 
 Parameters keep torch's RNN layout (w_ih (nG*H, in), gate order LSTM i,f,g,o
 and GRU r,z,n), which is also the JAX package's. Every cell runs through
-``ops.critic_kernels`` (a fused kernel per cell on the card), f32 throughout.
+``ops.critic_kernels`` (a fused kernel per cell on the card, over weights
+packed once per decode by ``step_weights``), f32 throughout.
 The full-sequence scan belongs to the training path and is not ported here.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,9 +33,13 @@ class LSTMLayer(_RNNLayer):
     def __init__(self, d_in: int, d_hidden: int, device=None):
         super().__init__(4, d_in, d_hidden, device)
 
-    def step(self, xt: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]):
-        h, c = ck.lstm_cell(xt, state[0], state[1], self.weight_ih,
-                            self.weight_hh, self.bias_ih + self.bias_hh)
+    def step_weights(self) -> ck.PackedCell:
+        return ck.pack_lstm(self.weight_ih, self.weight_hh,
+                            self.bias_ih + self.bias_hh)
+
+    def step(self, xt: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor],
+             packed: ck.PackedCell):
+        h, c = ck.lstm_cell_packed(xt, state[0], state[1], packed)
         return h, (h, c)
 
 
@@ -42,9 +47,12 @@ class GRULayer(_RNNLayer):
     def __init__(self, d_in: int, d_hidden: int, device=None):
         super().__init__(3, d_in, d_hidden, device)
 
-    def step(self, xt: torch.Tensor, h: torch.Tensor):
-        h = ck.gru_cell(xt, h, self.weight_ih, self.weight_hh, self.bias_ih,
-                        self.bias_hh)
+    def step_weights(self) -> ck.PackedCell:
+        return ck.pack_gru(self.weight_ih, self.weight_hh, self.bias_ih,
+                           self.bias_hh)
+
+    def step(self, xt: torch.Tensor, h: torch.Tensor, packed: ck.PackedCell):
+        h = ck.gru_cell_packed(xt, h, packed)
         return h, h
 
 
@@ -69,18 +77,31 @@ class SegmentCritic(nn.Module):
         z = torch.zeros(B, self.d_hidden, device=dev)
         return {"lstm": [(z, z) for _ in range(4)], "gru": [z, z]}
 
-    def step(self, emb_t: torch.Tensor, state: Dict[str, List]):
+    def step_weights(self) -> Dict[str, List[ck.PackedCell]]:
+        """Every cell's weights packed for the cell kernels. The critic is
+        frozen, so a decode packs once and hands the result to each
+        ``step``."""
+        return {"lstm": [getattr(self, f"lstm_l{l}").step_weights()
+                         for l in range(4)],
+                "gru": [getattr(self, f"gru_l{l}").step_weights()
+                        for l in range(2)]}
+
+    def step(self, emb_t: torch.Tensor, state: Dict[str, List],
+             weights: Optional[Dict[str, List[ck.PackedCell]]] = None):
         """emb_t: (B, d_caps) scaled token embedding -> ((B, 1) logit, new
-        state)."""
+        state). ``weights``: ``step_weights()``, packed anew when None."""
+        if weights is None:
+            weights = self.step_weights()
         h = emb_t.float().contiguous()
         new_lstm = []
         for l, st in enumerate(state["lstm"]):
-            h, st = getattr(self, f"lstm_l{l}").step(h, st)
+            h, st = getattr(self, f"lstm_l{l}").step(h, st,
+                                                     weights["lstm"][l])
             new_lstm.append(st)
         h = self.relu(h)
         new_gru = []
         for l, st in enumerate(state["gru"]):
-            h, st = getattr(self, f"gru_l{l}").step(h, st)
+            h, st = getattr(self, f"gru_l{l}").step(h, st, weights["gru"][l])
             new_gru.append(st)
         h = self.relu2(h)
         return self.lin(h), {"lstm": new_lstm, "gru": new_gru}

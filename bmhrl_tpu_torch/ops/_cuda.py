@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
-``bmhrl_tpu_torch/_build/`` (named by a hash of its sources and flags, so an
-edited source rebuilds). All missing libraries build at once, one ``nvcc``
+``bmhrl_tpu_torch/_build/`` (named by a hash of the source, every
+``csrc/*.cuh`` header and the flags, so an edited source or header
+rebuilds). All missing libraries build at once, one ``nvcc``
 process per source. Nothing here runs at import time: a CPU-only
 installation imports every module and never reaches ``nvcc``.
 
@@ -31,7 +32,9 @@ SOURCES = ("flash_attention", "folded_attention", "critic_cells")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {"flash_attention_bsd": 0, "folded_attend": 0,
+# flash attention counts per route (ops.attention.flash_route)
+LAUNCHES: Dict[str, int] = {"flash_attention_tc": 0,
+                            "flash_attention_simt": 0, "folded_attend": 0,
                             "lstm_cell": 0, "gru_cell": 0}
 
 _lock = threading.Lock()
@@ -55,8 +58,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library of ``<name>.cu``, named by a hash of that source, every
+    header of ``csrc/`` (any of them may be included) and the flags."""
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"

@@ -24,6 +24,19 @@ MIN_SK = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """The CUDA kernel that takes flash attention at (dtype, head width d):
+    "tc", the tensor-core kernel, for bf16 at d in {128, 256} (the serving
+    path); "simt", the CUDA-core kernel, for f32 and for bf16 at d in
+    {384, 512}. Raises ValueError for any other pair."""
+    if dtype == torch.bfloat16 and d in (128, 256):
+        return "tc"
+    if dtype in _DTYPE_CODE and d in (128, 256, 384, 512):
+        return "simt"
+    raise ValueError(f"flash attention takes float32 or bfloat16 at head "
+                     f"width 128..512 step 128, got {dtype} at {d}")
+
+
 def flash_qualifies(Sk: int, d_k: int) -> bool:
     """The JAX package's flash gate: long enough keys, head width a multiple
     of 128 up to 512 (the head widths the kernel is built for)."""
@@ -74,14 +87,18 @@ def flash_attention_bsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (B, Sk, HD) or v.shape != (B, Sk, HD):
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{what}: q/k/v must share float32 or bfloat16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if HD % H or (HD // H) not in (128, 256, 384, 512):
-        raise ValueError(f"{what}: head width {HD}/{H} not in 128..512 step "
-                         "128")
+    if k.dtype != q.dtype or v.dtype != q.dtype or HD % H:
+        raise ValueError(f"{what}: q/k/v types {q.dtype}, {k.dtype}, "
+                         f"{v.dtype} or width {HD} over {H} heads")
+    d = HD // H
+    route = flash_route(q.dtype, d)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{what}: the last axis must have unit stride")
+    if route == "tc" and any(t.data_ptr() % 16 or t.stride(0) % 8
+                             or t.stride(1) % 8 for t in (q, k, v)):
+        raise ValueError(f"{what}: the tensor-core kernel copies 16-byte "
+                         "rows: q/k/v must be 16-byte aligned with batch "
+                         "and row strides that are multiples of 8")
     if mask is None:
         mask = torch.ones(B, Sk, dtype=torch.int32, device=q.device)
     else:
@@ -90,15 +107,15 @@ def flash_attention_bsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _cuda.require_cuda(what, q, mask)
         mask = mask.to(torch.int32).contiguous()
     out = torch.empty(B, Sq, HD, dtype=q.dtype, device=q.device)
-    d = HD // H
     lib = _flash_lib()
-    err = lib.bmhrl_flash_attention(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), B, Sq, Sk, H, d,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-        v.stride(1), 1.0 / math.sqrt(d), int(causal), _cuda.stream_of(q))
-    _cuda.check(lib, err, what)
-    _cuda.LAUNCHES["flash_attention_bsd"] += 1
+    fn = (lib.bmhrl_flash_attention_tc if route == "tc"
+          else lib.bmhrl_flash_attention_simt)
+    err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             mask.data_ptr(), out.data_ptr(), B, Sq, Sk, H, d,
+             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+             v.stride(1), 1.0 / math.sqrt(d), int(causal), _cuda.stream_of(q))
+    _cuda.check(lib, err, f"{what} ({route}, B={B}, Sq={Sq}, Sk={Sk}, d={d})")
+    _cuda.LAUNCHES[f"flash_attention_{route}"] += 1
     return out
 
 
@@ -155,12 +172,12 @@ def folded_attend(q_eff: torch.Tensor, mem: torch.Tensor,
 
 def _flash_lib():
     lib = _cuda.library("flash_attention")
-    fn = lib.bmhrl_flash_attention
-    if fn.argtypes is None:
-        P, I, I64, F = _cuda.P, _cuda.I, _cuda.I64, _cuda.F
-        fn.argtypes = [I, P, P, P, P, P, I, I, I, I, I,
-                       I64, I64, I64, I64, I64, I64, F, I, P]
-        fn.restype = I
+    P, I, I64, F = _cuda.P, _cuda.I, _cuda.I64, _cuda.F
+    for fn in (lib.bmhrl_flash_attention_tc, lib.bmhrl_flash_attention_simt):
+        if fn.argtypes is None:
+            fn.argtypes = [I, P, P, P, P, P, I, I, I, I, I,
+                           I64, I64, I64, I64, I64, I64, F, I, P]
+            fn.restype = I
     return lib
 
 

@@ -4,7 +4,8 @@ bmhrl_tpu/train/decode.py: ``decode`` -> ``_decode_loop_fast`` with
 
 - The bimodal encoder runs once per clip.
 - The frozen critic's RNN state is carried across steps (6 cell kernels per
-  token instead of a rescan of the caption).
+  token instead of a rescan of the caption); its weights are packed for
+  the cell kernels once per call.
 - Each step runs O(1) positions: KV-cached self-attention and folded
   cross-attention against the RAW encoder memories. The worker and manager
   fusion stacks run as two passes over their own weights, but their
@@ -34,8 +35,10 @@ def _fast_setup(model, Va, Av, masks_src, B: int, L: int):
     caches0 = model.init_decode_caches(B, L)
     stacks = (model.bm_worker_fus, model.bm_manager_fus)
     N, H = model.att_layers, model.att_heads
-    # loop-invariant weights (merged QKV, folded projections), once per call
+    # loop-invariant weights (merged QKV, folded projections, packed critic
+    # cells), once per call
     sw = [[s.layer(i).step_weights() for i in range(N)] for s in stacks]
+    crit_w = model.critic.step_weights()  # the frozen cells, packed
     goal_fw = model.worker.goal_attention.folded_weights()
     mask_A = masks_src["A_mask"][:, 0, :].to(torch.int32).contiguous()
     mask_V = masks_src["V_mask"][:, 0, :].to(torch.int32).contiguous()
@@ -46,7 +49,7 @@ def _fast_setup(model, Va, Av, masks_src, B: int, L: int):
 
     def step_fn(tok_t, t: int, caches, valid):
         c_t, label_t, crit = model.decode_step_head(tok_t, t,
-                                                    caches["critic"])
+                                                    caches["critic"], crit_w)
         c = [c_t, c_t]
         for i in range(N):
             pre = [stacks[s].layer(i).step_mem_pre(

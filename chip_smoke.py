@@ -1,26 +1,33 @@
 """Drive the PyTorch/CUDA port (bmhrl_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, ends with the verdict
 
 Phases, each of which raises at its first failure:
 
 1. build: compile every kernel of csrc/ (one nvcc per source, in parallel);
 2. kernels: each kernel at the flagship's shapes against its plain PyTorch
-   version on the same card inputs, in f32 and bf16 (the critic cells are
-   f32 only), with timings of the kernel, the plain version, one PyTorch
-   library call computing the same function, and the card's bound;
+   version on the same card inputs, with timings of the kernel, the plain
+   version, one PyTorch library call computing the same function, and the
+   card's bound. Flash attention in bf16 takes the tensor-core route and in
+   f32 the CUDA-core route (ops.attention.flash_route), each with edge
+   cases (ragged Sq and Sk, causal, no mask, d = 128 and 512) and a
+   fully-masked row that must equal mean(V); the CUDA-core route is also
+   checked and timed at the reference decode's own shapes; the critic cells (f32) run
+   over packed weights and are also held against the unpacked cell math;
 3. reference: a small f32 model decoded on the card through the kernels
    and on the CPU through the plain versions: identical tokens, and
-   probabilities within 1e-4;
+   probabilities within 1e-4. Its launches are the CUDA-core flash
+   route's count (the bf16 serve never takes that route);
 4. serve: the flagship BMHrlAgent (Config's dims, vocabulary 10172, bf16,
    random weights from a seed loaded through the JAX-layout loader)
    answers 64 requests written as .npy files, across several bucket pairs
    with padded tail batches and one clip without features, through
    CaptionServer.caption. This is the main path: the launch counts are
-   zeroed just before it and read just after, and every kernel must have
-   launched. Then clips/s of greedy decode at B=32 and B=256 (Sv=128,
-   Sa=256, 30 tokens), the per-step token agreement of the kernels and the
-   plain versions fed the same tokens, and a profile of one B=256 decode.
+   zeroed just before it and read just after, and every kernel of the bf16
+   path must have launched. Then clips/s of greedy decode at B=32 and
+   B=256 (Sv=128, Sa=256, 30 tokens), the per-step token agreement of the
+   kernels and the plain versions fed the same tokens, and a profile of one
+   B=256 decode.
 
 Prints the card's name and power limit first, one JSON line per measurement,
 a ``kernels`` line, and last the line
@@ -85,10 +92,13 @@ def bound_ms(nbytes: float, ops: float, kind: str):
 
 class Kernel:
     """Accumulates one kernel's line of the final ``kernels`` record. Its
-    times sum the calls of one unit of the main path at B=256, Sv=128,
-    Sa=256: flash, the four encoder sites of one layer (bf16); folded, the
-    audio and video calls of one layer's token step (bf16 memory); LSTM,
-    the four cells of one token; GRU, the two cells of one token (f32)."""
+    times sum the calls of one unit of the path that launches it: the
+    tensor-core flash, the four bf16 encoder sites of one layer of the
+    serve at B=256, Sv=128, Sa=256; the CUDA-core flash, the four f32
+    encoder sites of one layer of the reference decode (B=8, d=128,
+    Sv=128, Sa=160); at the serve's B=256, folded, the audio and video
+    calls of one layer's token step (bf16 memory); LSTM, the four cells of
+    one token; GRU, the two cells of one token (f32)."""
 
     def __init__(self, name, source, replaces):
         self.rec = dict(name=name, route="cuda", source=source,
@@ -137,13 +147,32 @@ def phase_kernels(K):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
 
     # ---- flash attention: the 4 encoder sites of one layer at the serving
-    # shape (main path), the long-source shape, and edge cases
+    # shape (main path), the long-source shape, and edge cases. bf16 at
+    # d = 256 takes the tensor-core route (flash_attention_tc), f32 the
+    # CUDA-core route (flash_attention_simt); ops.attention.flash_route.
     H, d = 4, 256
     HD = H * d
     B = 256
     main_sites = [("V<-V", 128, 128), ("A<-A", 256, 256), ("V<-A", 128, 256),
                   ("A<-V", 256, 128)]
     long_sites = [("V<-A long", 300, 800), ("A<-A long", 800, 800)]
+    route_rec = {"tc": K["flash_tc"], "simt": K["flash_simt"]}
+
+    def flash_check(tag, q, k, v, mask, Hh, causal, masked_row, tol):
+        """Kernel vs plain version; a fully-masked row must be mean(V) over
+        its Sk keys. Returns (max error, route)."""
+        route = att.flash_route(q.dtype, q.shape[2] // Hh)
+        got = att.flash_attention_bsd(q, k, v, mask, Hh, causal)
+        want = att.flash_attention_bsd_plain(q, k, v, mask, Hh, causal)
+        torch.cuda.synchronize()
+        e = check_close(f"flash {tag}", got, want, tol)
+        if masked_row is not None:
+            mean_v = v[masked_row].float().mean(0).expand_as(got[masked_row])
+            e = max(e, check_close(f"flash {tag} masked row = mean(V)",
+                                   got[masked_row], mean_v, tol))
+        route_rec[route].err(e)
+        return e, route
+
     for site, Sq, Sk in main_sites + long_sites:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(B, Sq, HD, dtype=dtype)
@@ -153,12 +182,8 @@ def phase_kernels(K):
                                  device=dev)
             mask = torch.arange(Sk, device=dev)[None] < lens[:, None]
             mask[1] = False  # one fully-masked row
-            got = att.flash_attention_bsd(q, k, v, mask, H)
-            want = att.flash_attention_bsd_plain(q, k, v, mask, H)
-            torch.cuda.synchronize()
-            e = check_close(f"flash {site} {TAG[dtype]}", got, want,
-                            TOL[dtype])
-            K["flash"].err(e)
+            e, route = flash_check(f"{site} {TAG[dtype]}", q, k, v, mask, H,
+                                   False, 1, TOL[dtype])
             ms = time_ms(lambda: att.flash_attention_bsd(q, k, v, mask, H))
             pms = time_ms(lambda: att.flash_attention_bsd_plain(
                 q, k, v, mask, H), iters=5)
@@ -172,32 +197,67 @@ def phase_kernels(K):
             ops = 4.0 * B * H * Sq * Sk * d
             kind = TAG[dtype]
             bms, by = bound_ms(nbytes, ops, kind)
-            emit({"kernel": "flash_attention_bsd", "case": site, "B": B,
+            emit({"kernel": f"flash_attention_{route}", "case": site, "B": B,
                   "Sq": Sq, "Sk": Sk, "H": H, "d": d, "dtype": kind,
                   "max_abs_err": e, "tol": TOL[dtype], "kernel_ms": ms,
                   "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
                   "bound_by": by})
-            if dtype == torch.bfloat16 and "long" not in site:
-                K["flash"].add_main_shape(ms, pms, lms, nbytes, ops, kind)
-            del q, k, v, got, want
-    # edge cases: ragged Sk not a multiple of the key tile, causal, no mask
-    for Sq, Sk, causal, use_mask in ((37, 130, False, True),
-                                     (300, 300, True, True),
-                                     (64, 129, False, False)):
+            if route == "tc" and "long" not in site:
+                route_rec[route].add_main_shape(ms, pms, lms, nbytes, ops,
+                                                kind)
+            del q, k, v
+    # the CUDA-core route's own path: the four encoder sites of one layer of
+    # the reference phase's small f32 decode (B = 8, 2 heads of d = 128,
+    # Sv = 128, Sa = 160), each with a fully-masked row
+    Hr, dr, Br = 2, 128, 8
+    for site, Sq, Sk in (("V<-V", 128, 128), ("A<-A", 160, 160),
+                         ("V<-A", 128, 160), ("A<-V", 160, 128)):
+        q, k, v = (randn(Br, s, Hr * dr) for s in (Sq, Sk, Sk))
+        lens = torch.randint(Sk // 2, Sk + 1, (Br,), generator=g, device=dev)
+        mask = torch.arange(Sk, device=dev)[None] < lens[:, None]
+        mask[5] = False
+        e, route = flash_check(f"reference {site} f32", q, k, v, mask, Hr,
+                               False, 5, TOL[torch.float32])
+        ms = time_ms(lambda: att.flash_attention_bsd(q, k, v, mask, Hr))
+        pms = time_ms(lambda: att.flash_attention_bsd_plain(q, k, v, mask,
+                                                            Hr))
+        qh, kh, vh = (x.view(Br, -1, Hr, dr).transpose(1, 2)
+                      for x in (q, k, v))
+        m4 = mask[:, None, None, :]
+        lms = time_ms(lambda: Fn.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=m4))
+        nbytes = (2 * Br * Sq + 2 * Br * Sk) * Hr * dr * 4 + Br * Sk * 4
+        ops = 4.0 * Br * Hr * Sq * Sk * dr
+        bms, by = bound_ms(nbytes, ops, "f32")
+        emit({"kernel": f"flash_attention_{route}",
+              "case": f"reference {site}", "B": Br, "Sq": Sq, "Sk": Sk,
+              "H": Hr, "d": dr, "dtype": "f32", "max_abs_err": e,
+              "tol": TOL[torch.float32], "kernel_ms": ms, "plain_ms": pms,
+              "library_ms": lms, "bound_ms": bms, "bound_by": by})
+        route_rec[route].add_main_shape(ms, pms, lms, nbytes, ops, "f32")
+    # edge cases, each with a fully-masked row where there is a mask: Sq and
+    # Sk not multiples of the tiles (tensor core: 128 queries, 64 keys;
+    # CUDA core: 32 keys), causal, no mask, d = 128 and d = 512
+    for Sq, Sk, causal, use_mask, dh in (
+            (37, 130, False, True, 256), (65, 129, False, True, 256),
+            (300, 300, True, True, 256), (64, 129, False, False, 256),
+            (300, 800, False, True, 256), (65, 300, False, True, 128),
+            (37, 800, True, True, 128), (300, 130, False, True, 128),
+            (65, 130, False, True, 512)):
+        Hh = HD // dh
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (randn(4, s, HD, dtype=dtype) for s in (Sq, Sk, Sk))
-            mask = None
+            mask, masked_row = None, None
             if use_mask:
                 mask = torch.rand(4, Sk, generator=g, device=dev) > 0.3
                 mask[2] = False
-            got = att.flash_attention_bsd(q, k, v, mask, H, causal)
-            want = att.flash_attention_bsd_plain(q, k, v, mask, H, causal)
-            torch.cuda.synchronize()
-            e = check_close("flash edge", got, want, TOL[dtype])
-            K["flash"].err(e)
-            emit({"kernel": "flash_attention_bsd", "case": "edge",
-                  "Sq": Sq, "Sk": Sk, "causal": causal, "mask": use_mask,
-                  "dtype": TAG[dtype], "max_abs_err": e, "tol": TOL[dtype]})
+                masked_row = 2
+            e, route = flash_check("edge", q, k, v, mask, Hh, causal,
+                                   masked_row, TOL[dtype])
+            emit({"kernel": f"flash_attention_{route}", "case": "edge",
+                  "Sq": Sq, "Sk": Sk, "d": dh, "causal": causal,
+                  "mask": use_mask, "dtype": TAG[dtype], "max_abs_err": e,
+                  "tol": TOL[dtype]})
 
     # ---- folded attention: both branches of one layer-step (G = 2 stacks x
     # 4 heads) at the serving shape, and the long-source shape
@@ -246,63 +306,87 @@ def phase_kernels(K):
             if dtype == torch.bfloat16 and "long" not in case:
                 K["folded"].add_main_shape(ms, pms, lms, nbytes, ops, "f32")
 
-    # ---- critic cells: the 4 LSTM and 2 GRU cells of one token (f32)
+    # ---- critic cells: the 4 LSTM and 2 GRU cells of one token (f32), over
+    # weights packed once (not timed: a decode packs once per call)
+    def cell_inputs(n_gates, Bc, Kin, Hc):
+        bound = 1.0 / math.sqrt(Hc)
+        return (randn(Bc, Kin), randn(Bc, Hc, scale=0.5),
+                randn(Bc, Hc, scale=0.5), randn(n_gates * Hc, Kin, scale=bound),
+                randn(n_gates * Hc, Hc, scale=bound),
+                randn(n_gates * Hc, scale=bound),
+                randn(n_gates * Hc, scale=bound))
+
+    def cell_fns(name, x, h, c, w_ih, w_hh, b_ih, b_hh):
+        """(kernel, packed plain version, unpacked plain version) closures."""
+        if name == "lstm_cell":
+            p = ck.pack_lstm(w_ih, w_hh, b_ih + b_hh)
+            return (lambda: ck.lstm_cell_packed(x, h, c, p),
+                    lambda: ck.lstm_cell_packed_plain(x, h, c, p),
+                    lambda: ck.lstm_cell_plain(x, h, c, w_ih, w_hh,
+                                               b_ih + b_hh))
+        p = ck.pack_gru(w_ih, w_hh, b_ih, b_hh)
+        return (lambda: (ck.gru_cell_packed(x, h, p),),
+                lambda: (ck.gru_cell_packed_plain(x, h, p),),
+                lambda: (ck.gru_cell_plain(x, h, w_ih, w_hh, b_ih, b_hh),))
+
+    def cell_check(name, fns):
+        run, plain, unpacked = fns
+        got, want, want_u = run(), plain(), unpacked()
+        torch.cuda.synchronize()
+        return max(max(check_close(f"{name} {i}", a, b, 1e-5),
+                       check_close(f"{name} {i} vs unpacked", a, u, 1e-5))
+                   for i, (a, b, u) in enumerate(zip(got, want, want_u)))
+
     Hc = 600
     for name, n_gates, Kin, layers in (("lstm_cell", 4, 300, 1),
                                        ("lstm_cell", 4, 600, 3),
                                        ("gru_cell", 3, 600, 2)):
-        bound = 1.0 / math.sqrt(Hc)
-        x = randn(B, Kin)
-        h = randn(B, Hc, scale=0.5)
-        c = randn(B, Hc, scale=0.5)
-        w_ih = randn(n_gates * Hc, Kin, scale=bound)
-        w_hh = randn(n_gates * Hc, Hc, scale=bound)
-        b_ih = randn(n_gates * Hc, scale=bound)
-        b_hh = randn(n_gates * Hc, scale=bound)
-        if name == "lstm_cell":
-            b_sum = b_ih + b_hh
-            got = ck.lstm_cell(x, h, c, w_ih, w_hh, b_sum)
-            want = ck.lstm_cell_plain(x, h, c, w_ih, w_hh, b_sum)
-            e = max(check_close("lstm h", got[0], want[0], 1e-5),
-                    check_close("lstm c", got[1], want[1], 1e-5))
-            run = lambda: ck.lstm_cell(x, h, c, w_ih, w_hh, b_sum)  # noqa
-            plain = lambda: ck.lstm_cell_plain(x, h, c, w_ih, w_hh, b_sum)  # noqa
-            cell = torch.nn.LSTMCell(Kin, Hc, device=dev)
-            out_elems = 2 * B * Hc
-            in_elems = B * (Kin + 2 * Hc)
-        else:
-            got = ck.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh)
-            want = ck.gru_cell_plain(x, h, w_ih, w_hh, b_ih, b_hh)
-            e = check_close("gru h", got, want, 1e-5)
-            run = lambda: ck.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh)  # noqa
-            plain = lambda: ck.gru_cell_plain(x, h, w_ih, w_hh, b_ih, b_hh)  # noqa
-            cell = torch.nn.GRUCell(Kin, Hc, device=dev)
-            out_elems = B * Hc
-            in_elems = B * (Kin + Hc)
-        with torch.no_grad():
-            cell.weight_ih.copy_(w_ih)
-            cell.weight_hh.copy_(w_hh)
-            cell.bias_ih.copy_(b_ih)
-            cell.bias_hh.copy_(b_hh)
-            want_lib = (cell(x, (h, c))[0] if name == "lstm_cell"
-                        else cell(x, h))
-            check_close(f"{name} vs torch.nn cell", want_lib,
-                        want[0] if name == "lstm_cell" else want, 1e-5)
-            lms = time_ms(lambda: cell(x, (h, c)) if name == "lstm_cell"
-                          else cell(x, h))
-        K[name].err(e)
-        ms = time_ms(run)
-        pms = time_ms(plain)
-        nbytes = 4.0 * (n_gates * Hc * (Kin + Hc) + 2 * n_gates * Hc
-                        + in_elems + out_elems)
-        ops = 2.0 * B * n_gates * Hc * (Kin + Hc)
-        bms, by = bound_ms(nbytes, ops, "f32")
-        emit({"kernel": name, "case": f"K={Kin} x{layers} per token", "B": B,
-              "K": Kin, "H": Hc, "dtype": "f32", "max_abs_err": e,
-              "tol": 1e-5, "kernel_ms": ms, "plain_ms": pms,
-              "library_ms": lms, "bound_ms": bms, "bound_by": by})
-        for _ in range(layers):
-            K[name].add_main_shape(ms, pms, lms, nbytes, ops, "f32")
+        for Bc in (B, 32):
+            x, h, c, w_ih, w_hh, b_ih, b_hh = cell_inputs(n_gates, Bc, Kin,
+                                                          Hc)
+            fns = cell_fns(name, x, h, c, w_ih, w_hh, b_ih, b_hh)
+            e = cell_check(name, fns)
+            lstm = name == "lstm_cell"
+            cell = (torch.nn.LSTMCell if lstm else torch.nn.GRUCell)(
+                Kin, Hc, device=dev)
+            with torch.no_grad():
+                cell.weight_ih.copy_(w_ih)
+                cell.weight_hh.copy_(w_hh)
+                cell.bias_ih.copy_(b_ih)
+                cell.bias_hh.copy_(b_hh)
+                lib_call = ((lambda: cell(x, (h, c))) if lstm
+                            else (lambda: cell(x, h)))
+                check_close(f"{name} vs torch.nn cell", lib_call()[0]
+                            if lstm else lib_call(), fns[0]()[0], 1e-5)
+                lms = time_ms(lib_call)
+            K[name].err(e)
+            ms = time_ms(fns[0])
+            pms = time_ms(fns[1])
+            out_elems = (2 if lstm else 1) * Bc * Hc
+            in_elems = Bc * (Kin + (2 if lstm else 1) * Hc)
+            nbytes = 4.0 * (n_gates * Hc * (Kin + Hc) + 2 * n_gates * Hc
+                            + in_elems + out_elems)
+            ops = 2.0 * Bc * n_gates * Hc * (Kin + Hc)
+            bms, by = bound_ms(nbytes, ops, "f32")
+            emit({"kernel": name, "case": f"K={Kin} x{layers} per token",
+                  "B": Bc, "K": Kin, "H": Hc, "dtype": "f32",
+                  "max_abs_err": e, "tol": 1e-5, "kernel_ms": ms,
+                  "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+                  "bound_by": by})
+            if Bc == B:
+                for _ in range(layers):
+                    K[name].add_main_shape(ms, pms, lms, nbytes, ops, "f32")
+    # ragged edges: H not a multiple of the 8-unit tile, K and H not of the
+    # 32-row contraction tile, K % 4 != 0 (4-byte activation copies), B not
+    # a multiple of the 128-row tile
+    for Bc, Kin, Hc in ((3, 75, 150), (64, 20, 20), (1, 300, 600),
+                        (129, 37, 21)):
+        for name, n_gates in (("lstm_cell", 4), ("gru_cell", 3)):
+            e = cell_check(name, cell_fns(name, *cell_inputs(n_gates, Bc, Kin,
+                                                             Hc)))
+            K[name].err(e)
+            emit({"kernel": name, "case": "edge", "B": Bc, "K": Kin, "H": Hc,
+                  "max_abs_err": e, "tol": 1e-5})
 
 
 # --------------------------------------------------------------------------
@@ -328,10 +412,14 @@ def make_feats(B, Sv, Sa, d_v, d_a, device, seed=0):
             for k, v in f.items()}
 
 
-def phase_reference():
-    """Small f32 model: kernels on the card vs plain versions on the CPU."""
+def phase_reference(K):
+    """Small f32 model: kernels on the card vs plain versions on the CPU.
+    f32 attention takes the CUDA-core flash route, so this is the run whose
+    launches count for flash_attention_simt (the bf16 serve never takes
+    it)."""
     import torch
 
+    from bmhrl_tpu_torch.ops import _cuda
     from bmhrl_tpu_torch.ops.masking import make_masks
     from bmhrl_tpu_torch.train.decode import decode
 
@@ -341,12 +429,21 @@ def phase_reference():
         feats = make_feats(8, 128, 160, 128, 128, device, seed=3)
         feats["audio"][2, 90:] = 0.0     # ragged audio
         feats["rgb"][5] = 0.0            # a zero-feature (fully masked) row
+        _cuda.reset_launches()
         tok, prob = decode(model, feats, make_masks(feats), 12, 2, 3, 1)
         out[device] = (tok.cpu(), prob.cpu())
+        if device == "cuda":
+            launches = dict(_cuda.LAUNCHES)
+    n_simt = launches["flash_attention_simt"]
+    K["flash_attention_simt"].rec["launches"] = n_simt
+    if n_simt <= 0:
+        raise AssertionError("the f32 decode never launched the CUDA-core "
+                             "flash route")
     same = bool(torch.equal(out["cuda"][0], out["cpu"][0]))
     perr = float((out["cuda"][1] - out["cpu"][1]).abs().max())
     emit({"phase": "reference", "dims": "small", "dtype": "f32",
-          "tokens_identical": same, "prob_max_abs_err": perr, "tol": 1e-4})
+          "tokens_identical": same, "prob_max_abs_err": perr, "tol": 1e-4,
+          "launches": launches})
     if not same or perr > 1e-4:
         raise AssertionError("card decode disagrees with the CPU reference")
 
@@ -361,8 +458,10 @@ def plain_kernels():
     with mock.patch.object(att, "flash_attention_bsd",
                            att.flash_attention_bsd_plain), \
             mock.patch.object(att, "folded_attend", att.folded_attend_plain), \
-            mock.patch.object(ck, "lstm_cell", ck.lstm_cell_plain), \
-            mock.patch.object(ck, "gru_cell", ck.gru_cell_plain):
+            mock.patch.object(ck, "lstm_cell_packed",
+                              ck.lstm_cell_packed_plain), \
+            mock.patch.object(ck, "gru_cell_packed",
+                              ck.gru_cell_packed_plain):
         yield
 
 
@@ -429,6 +528,10 @@ def phase_serve(K):
         raise AssertionError("a request got no sentence")
     if stats.padded_rows == 0:
         raise AssertionError("the run had no padded tail batch")
+    # every kernel of the bf16 serving path launched; the CUDA-core flash
+    # route is not on it (its launches are counted in the reference phase)
+    if launches.pop("flash_attention_simt"):
+        raise AssertionError("the bf16 serve took the CUDA-core flash route")
     for name, n in launches.items():
         K[name].rec["launches"] = n
         if n <= 0:
@@ -526,28 +629,29 @@ def profile_decode(model, B=256):
         decode(model, feats, masks, 30, BOS, -1, PAD)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"flash_kernel": 0.0, "folded_kernel": 0.0, "cell_kernel": 0.0,
-              "gemm": 0.0, "other": 0.0}
-    launches = 0
+    kernels = ("flash_tc_kernel", "flash_simt_kernel", "folded_kernel",
+               "lstm_cell_kernel", "gru_cell_kernel")
+    groups = dict.fromkeys(kernels + ("gemm", "other"), 0.0)
+    counts = dict.fromkeys(groups, 0)
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(evt, "device_time_total", None)
         if us is None:
             us = evt.cuda_time_total
-        launches += evt.count
         name = evt.key.lower()
-        key = next((g for g in ("flash_kernel", "folded_kernel",
-                                "cell_kernel") if g in name), None)
+        key = next((g for g in kernels if g in name), None)
         if key is None:
             key = "gemm" if ("gemm" in name or "sm90" in name
                              or "cutlass" in name) else "other"
         groups[key] += us / 1e3
+        counts[key] += evt.count
     busy = sum(groups.values())
     emit({"phase": "profile", "B": B, "Sv": 128, "Sa": 256, "tokens": 30,
           "wall_ms": wall_ms, "device_ms": groups, "device_busy_ms": busy,
           "device_idle_share": (1 - busy / wall_ms) if busy else None,
-          "device_launches": launches,
+          "device_launches": sum(counts.values()),
+          "device_launches_by_group": counts,
           "note": None if busy else "not measured: no device time traced"})
 
 
@@ -578,32 +682,40 @@ def main() -> int:
     build_s = _cuda.build()
     emit({"phase": "build", "build_s": build_s,
           "ptxas": {n: [ln for ln in (_cuda.BUILD_DIR / f"{n}.log")
-                        .read_text().splitlines() if "registers" in ln]
+                        .read_text().splitlines()
+                        if "registers" in ln or "spill" in ln
+                        or "entry function" in ln]
                     for n in _cuda.SOURCES
                     if (_cuda.BUILD_DIR / f"{n}.log").exists()}})
 
     src = "bmhrl_tpu_torch/csrc/"
-    K = {"flash": Kernel("flash_attention_bsd", src + "flash_attention.cu",
-                         "bmhrl_tpu/ops/attention.py:89 (+ :269)"),
+    flash_tpu = "bmhrl_tpu/ops/attention.py:89 (+ :269)"
+    K = {"flash_tc": Kernel("flash_attention_tc", src + "flash_attention.cu",
+                            flash_tpu),
+         "flash_simt": Kernel("flash_attention_simt",
+                              src + "flash_attention.cu", flash_tpu),
          "folded": Kernel("folded_attend", src + "folded_attention.cu",
                           "bmhrl_tpu/ops/attention.py:568"),
          "lstm_cell": Kernel("lstm_cell", src + "critic_cells.cu",
                              "bmhrl_tpu/ops/critic_kernels.py:64"),
          "gru_cell": Kernel("gru_cell", src + "critic_cells.cu",
                             "bmhrl_tpu/ops/critic_kernels.py:87")}
-    K["flash_attention_bsd"] = K["flash"]
+    K["flash_attention_tc"] = K["flash_tc"]
+    K["flash_attention_simt"] = K["flash_simt"]
     K["folded_attend"] = K["folded"]
 
-    for name, phase in (("kernels", lambda: phase_kernels(K)),
-                        ("reference", phase_reference),
-                        ("serve", lambda: phase_serve(K))):
+    phases = (("kernels", lambda: phase_kernels(K)),
+              ("reference", lambda: phase_reference(K)),
+              ("serve", lambda: phase_serve(K)))
+    for name, phase in phases:
         t0 = time.perf_counter()
         log(f"chip_smoke: phase {name}")
         phase()
         torch.cuda.synchronize()
         emit({"phase": name, "seconds": time.perf_counter() - t0})
 
-    kernels = [K[n].rec for n in ("flash", "folded", "lstm_cell", "gru_cell")]
+    kernels = [K[n].rec for n in ("flash_tc", "flash_simt", "folded",
+                                  "lstm_cell", "gru_cell")]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -245,7 +245,8 @@ def test_cpu_wrappers_take_plain_versions_and_never_launch():
                                        _cell_inputs(0, 2, 8, 8, 4))
     ck.lstm_cell(x, h, c, w_ih, w_hh, b_ih)
     assert all(n == 0 for n in _cuda.LAUNCHES.values()), _cuda.LAUNCHES
-    assert set(_cuda.LAUNCHES) == {"flash_attention_bsd", "folded_attend",
+    assert set(_cuda.LAUNCHES) == {"flash_attention_tc",
+                                   "flash_attention_simt", "folded_attend",
                                    "lstm_cell", "gru_cell"}
 
 
