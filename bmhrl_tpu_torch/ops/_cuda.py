@@ -32,9 +32,11 @@ SOURCES = ("flash_attention", "folded_attention", "critic_cells")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# flash attention counts per route (ops.attention.flash_route)
+# flash and folded attention count per route (ops.attention.flash_route,
+# folded_route)
 LAUNCHES: Dict[str, int] = {"flash_attention_tc": 0,
-                            "flash_attention_simt": 0, "folded_attend": 0,
+                            "flash_attention_simt": 0,
+                            "folded_attend_tc": 0, "folded_attend_simt": 0,
                             "lstm_cell": 0, "gru_cell": 0}
 
 _lock = threading.Lock()

@@ -119,6 +119,45 @@ def flash_attention_bsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+# streaming multiprocessors of one H100 SXM: folded_split aims to give each
+# at least one block
+FOLDED_SMS = 132
+
+
+def folded_route(dtype: torch.dtype, draw: int) -> str:
+    """The CUDA kernel that takes folded attention over a (dtype, draw)
+    memory: "tc", the tensor-core kernel, for bf16 at draw 128..1024 step
+    128 (both memories of the serving path); "simt", the CUDA-core kernel,
+    for f32 and every other width. Raises ValueError for another dtype."""
+    if dtype == torch.bfloat16 and draw % 128 == 0 and 128 <= draw <= 1024:
+        return "tc"
+    if dtype in _DTYPE_CODE and draw > 0:
+        return "simt"
+    raise ValueError(f"folded attention takes a float32 or bfloat16 memory, "
+                     f"got {dtype} at width {draw}")
+
+
+def folded_split(B: int, S: int) -> int:
+    """Blocks of the thread-block cluster that share one clip's keys on the
+    "tc" route: the fewest of 1, 2, 4, 8 that give every SM a block
+    (B * c >= FOLDED_SMS), but never more than half the clip's 16-key
+    tiles: a block's fixed costs (its queries, the first load, the cluster
+    combine) need two tiles to hide behind. chip_smoke.py timed the B=32
+    video call (S 128) at 0.0195 ms over 4 blocks and 0.0284 ms over 8,
+    one tile each (H100 80GB HBM3, 700 W)."""
+    tiles = -(-S // 16)
+    c = 1
+    while c < 8 and B * c < FOLDED_SMS and 4 * c <= tiles:
+        c *= 2
+    return c
+
+
+def folded_tile(draw: int) -> int:
+    """Keys per stage of the "tc" kernel's 3-stage ring: about 32 KB of bf16
+    rows, a multiple of 16 (the mma's m) from 16 to 64."""
+    return max(16, min(64, 16384 // draw // 16 * 16))
+
+
 def folded_attend_plain(q_eff: torch.Tensor, mem: torch.Tensor,
                         mask: Optional[torch.Tensor],
                         scale: float) -> torch.Tensor:
@@ -139,7 +178,13 @@ def folded_attend(q_eff: torch.Tensor, mem: torch.Tensor,
     (K-projection folded in), mem (B, S, draw) raw memory, mask (B, S)
     (nonzero = attend) or None. Returns softmax(scale q memᵀ) mem as
     (B, G, draw) f32; a fully-masked row gives mean(mem) over its own S
-    keys."""
+    keys.
+
+    On the card the route is ``folded_route(mem.dtype, draw)``. The "tc"
+    kernel takes q_eff (f32, any strides) and the scale as they are, a
+    memory with unit stride along draw, 16-byte aligned, batch and row
+    strides multiples of 8, and an int32 mask: one launch, nothing copied.
+    """
     if q_eff.device.type == "cpu":
         return folded_attend_plain(q_eff, mem, mask, scale)
     what = "folded_attend"
@@ -149,24 +194,44 @@ def folded_attend(q_eff: torch.Tensor, mem: torch.Tensor,
     if mem.shape != (B, S, draw):
         raise ValueError(f"{what}: mem {tuple(mem.shape)} does not match "
                          f"q_eff {tuple(q_eff.shape)}")
-    if mem.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{what}: mem must be float32 or bfloat16")
-    if mask is None:
-        mask = torch.ones(B, S, dtype=torch.int32, device=mem.device)
-    else:
+    route = folded_route(mem.dtype, draw)
+    if mask is not None:
         if mask.shape != (B, S):
             raise ValueError(f"{what}: mask {tuple(mask.shape)} != {(B, S)}")
         _cuda.require_cuda(what, mem, mask)
         mask = mask.to(torch.int32).contiguous()
-    q = (q_eff.float() * scale).contiguous()
-    mem = mem.contiguous()
     out = torch.empty(B, G, draw, dtype=torch.float32, device=mem.device)
     lib = _folded_lib()
-    err = lib.bmhrl_folded_attend(
-        _DTYPE_CODE[mem.dtype], q.data_ptr(), mem.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), B, G, S, draw, _cuda.stream_of(mem))
-    _cuda.check(lib, err, f"{what} (B={B}, G={G}, S={S}, draw={draw})")
-    _cuda.LAUNCHES["folded_attend"] += 1
+    if route == "tc":
+        if q_eff.dtype != torch.float32:
+            raise ValueError(f"{what}: the tensor-core kernel takes float32 "
+                             f"queries, got {q_eff.dtype}")
+        if (mem.stride(2) != 1 or mem.data_ptr() % 16 or mem.stride(0) % 8
+                or mem.stride(1) % 8):
+            raise ValueError(f"{what}: the tensor-core kernel copies 16-byte "
+                             "rows: mem must be 16-byte aligned with unit "
+                             "stride along draw and batch and row strides "
+                             "that are multiples of 8")
+        split = folded_split(B, S)
+        err = lib.bmhrl_folded_attend_tc(
+            q_eff.data_ptr(), mem.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), B, G,
+            S, draw, split, folded_tile(draw), *q_eff.stride(), mem.stride(0),
+            mem.stride(1), scale, _cuda.stream_of(mem))
+        _cuda.check(lib, err, f"{what} (tc, B={B}, G={G}, S={S}, "
+                              f"draw={draw}, split={split})")
+    else:
+        if mask is None:
+            mask = torch.ones(B, S, dtype=torch.int32, device=mem.device)
+        q = (q_eff.float() * scale).contiguous()
+        mem = mem.contiguous()
+        err = lib.bmhrl_folded_attend(
+            _DTYPE_CODE[mem.dtype], q.data_ptr(), mem.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), B, G, S, draw,
+            _cuda.stream_of(mem))
+        _cuda.check(lib, err, f"{what} (simt, B={B}, G={G}, S={S}, "
+                              f"draw={draw})")
+    _cuda.LAUNCHES[f"folded_attend_{route}"] += 1
     return out
 
 
@@ -183,9 +248,11 @@ def _flash_lib():
 
 def _folded_lib():
     lib = _cuda.library("folded_attention")
-    fn = lib.bmhrl_folded_attend
-    if fn.argtypes is None:
-        P, I = _cuda.P, _cuda.I
-        fn.argtypes = [I, P, P, P, P, I, I, I, I, P]
-        fn.restype = I
+    P, I, I64, F = _cuda.P, _cuda.I, _cuda.I64, _cuda.F
+    if lib.bmhrl_folded_attend.argtypes is None:
+        lib.bmhrl_folded_attend.argtypes = [I, P, P, P, P, I, I, I, I, P]
+        lib.bmhrl_folded_attend.restype = I
+        lib.bmhrl_folded_attend_tc.argtypes = [
+            P, P, P, P, I, I, I, I, I, I, I64, I64, I64, I64, I64, F, P]
+        lib.bmhrl_folded_attend_tc.restype = I
     return lib

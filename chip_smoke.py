@@ -12,12 +12,19 @@ Phases, each of which raises at its first failure:
    f32 the CUDA-core route (ops.attention.flash_route), each with edge
    cases (ragged Sq and Sk, causal, no mask, d = 128 and 512) and a
    fully-masked row that must equal mean(V); the CUDA-core route is also
-   checked and timed at the reference decode's own shapes; the critic cells (f32) run
-   over packed weights and are also held against the unpacked cell math;
+   checked and timed at the reference decode's own shapes. Folded
+   attention with a bf16 memory takes the tensor-core route and with an f32
+   one the CUDA-core route (ops.attention.folded_route), at the serve's
+   audio and video shapes for B=256 and B=32, the long-source shapes and
+   (tensor core) edge cases, each fully-masked row equal to mean(mem); a
+   CUDA graph of one tensor-core call must hold one kernel and nothing
+   else. The critic cells (f32) run
+   over packed weights and are also held against the unpacked cell math.
+   Kernel times are device times of calls replayed from a CUDA graph;
 3. reference: a small f32 model decoded on the card through the kernels
    and on the CPU through the plain versions: identical tokens, and
-   probabilities within 1e-4. Its launches are the CUDA-core flash
-   route's count (the bf16 serve never takes that route);
+   probabilities within 1e-4. Its launches are the CUDA-core flash and
+   folded routes' counts (the bf16 serve never takes those routes);
 4. serve: the flagship BMHrlAgent (Config's dims, vocabulary 10172, bf16,
    random weights from a seed loaded through the JAX-layout loader)
    answers 64 requests written as .npy files, across several bucket pairs
@@ -69,7 +76,34 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds of fn() over ``iters`` back-to-back calls."""
+    """Mean device milliseconds of one fn() call: ``iters`` calls captured
+    in one CUDA graph and replayed, so the host's cost of launching them
+    (Python, ctypes, the launch itself) is left out."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def eager_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds of fn() over ``iters`` back-to-back eager calls, on
+    the device's clock: the device time, or the host's launch time where
+    that is longer."""
     import torch
 
     for _ in range(warmup):
@@ -84,6 +118,34 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_node_types(fn) -> list:
+    """The node types of a CUDA graph that holds one fn() call, read through
+    libcuda (CUgraphNodeType: 0 is a kernel)."""
+    import ctypes
+
+    import torch
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        types.append(t.value)
+    del graph
+    return types
+
+
 def bound_ms(nbytes: float, ops: float, kind: str):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
@@ -96,9 +158,12 @@ class Kernel:
     tensor-core flash, the four bf16 encoder sites of one layer of the
     serve at B=256, Sv=128, Sa=256; the CUDA-core flash, the four f32
     encoder sites of one layer of the reference decode (B=8, d=128,
-    Sv=128, Sa=160); at the serve's B=256, folded, the audio and video
-    calls of one layer's token step (bf16 memory); LSTM, the four cells of
-    one token; GRU, the two cells of one token (f32)."""
+    Sv=128, Sa=160); the tensor-core folded attention, the audio and video
+    calls of one layer's token step of the serve at B=256 (bf16 memory);
+    the CUDA-core folded attention, the same pair in the reference decode
+    (B=8, G=4, draw 128, f32); LSTM, the four cells of one token; GRU, the
+    two cells of one token (f32, B=256). Times are device times of calls
+    replayed from a CUDA graph (``time_ms``)."""
 
     def __init__(self, name, source, replaces):
         self.rec = dict(name=name, route="cuda", source=source,
@@ -260,52 +325,171 @@ def phase_kernels(K):
                   "tol": TOL[dtype]})
 
     # ---- folded attention: both branches of one layer-step (G = 2 stacks x
-    # 4 heads) at the serving shape, and the long-source shape
+    # 4 heads) at the serving shapes, B = 256 and 32, and the long-source
+    # shapes. bf16 memory takes the tensor-core route (folded_attend_tc), f32
+    # the CUDA-core route (folded_attend_simt); ops.attention.folded_route.
+    folded_rec = {"tc": K["folded_tc"], "simt": K["folded_simt"]}
+
+    def folded_case(B, G, S, draw, dtype, use_mask=True, qscale=0.05):
+        """Inputs of one folded call; row B - 1 is fully masked where there
+        is a mask (unless B = 1)."""
+        qe = randn(B, G, draw, scale=qscale)
+        mem = randn(B, S, draw, dtype=dtype)
+        if not use_mask:
+            return qe, mem, None
+        lens = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+        mask = (torch.arange(S, device=dev)[None] < lens[:, None])
+        if B > 1:
+            mask[B - 1] = False
+        return qe, mem, mask.to(torch.int32)
+
+    def folded_check(tag, qe, mem, mask, scale):
+        """Kernel vs plain version within 1e-4; a fully-masked row must be
+        mean(mem) over its own S keys. Returns (max error, route)."""
+        B, G, draw = qe.shape
+        route = att.folded_route(mem.dtype, draw)
+        got = att.folded_attend(qe, mem, mask, scale)
+        want = att.folded_attend_plain(qe, mem, mask, scale)
+        torch.cuda.synchronize()
+        e = check_close(f"folded {tag}", got, want, 1e-4)
+        if mask is not None and B > 1:
+            e = max(e, check_close(
+                f"folded {tag} masked row = mean(mem)", got[B - 1],
+                mem[B - 1].float().mean(0).expand(G, -1), 1e-4))
+        folded_rec[route].err(e)
+        return e, route
+
+    def folded_times(qe, mem, mask, scale):
+        """(kernel, eager kernel, plain, library, bytes, ops). Each timed
+        function cycles through copies of its inputs that together exceed
+        the 50 MB L2 cache (at most 64 copies), as the decode finds the
+        memories cold."""
+        B, G, draw = qe.shape
+        S = mem.shape[1]
+        nbytes = (2 * B * G * draw * 4 + B * S * draw * mem.element_size()
+                  + (0 if mask is None else B * S * 4))
+        n = min(64, max(1, math.ceil(120e6 / nbytes)))
+        sets = [(qe, mem, mask)] + [
+            (qe.clone(), mem.clone(), None if mask is None else mask.clone())
+            for _ in range(n - 1)]
+        negs = [torch.zeros(B, 1, S, device=dev, dtype=mem.dtype)
+                if mk is None else
+                torch.zeros(B, 1, S, device=dev, dtype=mem.dtype).masked_fill(
+                    ~(mk > 0)[:, None, :], -1e9) for _, _, mk in sets]
+
+        def cycle(call):
+            state = {"i": 0}
+
+            def run():
+                i = state["i"] % n
+                state["i"] += 1
+                return call(i, *sets[i])
+            return run
+
+        def library(i, q, m, mk):
+            s = torch.matmul((q * scale).to(m.dtype), m.transpose(1, 2))
+            p = torch.softmax((s + negs[i]).float(), dim=-1)
+            return torch.matmul(p.to(m.dtype), m)
+
+        iters = 4 * n
+        ms = time_ms(cycle(lambda i, q, m, mk: att.folded_attend(
+            q, m, mk, scale)), iters=iters)
+        ems = eager_ms(cycle(lambda i, q, m, mk: att.folded_attend(
+            q, m, mk, scale)), iters=iters)
+        pms = time_ms(cycle(lambda i, q, m, mk: att.folded_attend_plain(
+            q, m, mk, scale)), iters=iters)
+        lms = time_ms(cycle(library), iters=iters)
+        return ms, ems, pms, lms, nbytes, 4.0 * B * G * S * draw
+
     G = 8
     scale = 1.0 / math.sqrt(d)
-    for case, S, draw in (("V", 128, 1024), ("A", 256, 128),
-                          ("V long", 300, 1024), ("A long", 800, 128)):
-        for dtype in (torch.float32, torch.bfloat16):
-            qe = randn(B, G, draw, scale=0.05)
-            mem = randn(B, S, draw, dtype=dtype)
-            lens = torch.randint(1, S + 1, (B,), generator=g, device=dev)
-            mask = (torch.arange(S, device=dev)[None] < lens[:, None])
-            mask[3] = False
-            mask_i = mask.to(torch.int32)
-            got = att.folded_attend(qe, mem, mask_i, scale)
-            want = att.folded_attend_plain(qe, mem, mask_i, scale)
-            torch.cuda.synchronize()
-            # a fully-masked row is mean(mem) over its own S keys
-            mean_err = check_close("folded masked row", got[3],
-                                   mem[3].float().mean(0).expand(G, -1),
-                                   1e-4)
-            e = max(check_close(f"folded {case} {TAG[dtype]}", got, want,
-                                1e-4), mean_err)
-            K["folded"].err(e)
-            ms = time_ms(lambda: att.folded_attend(qe, mem, mask_i, scale))
-            pms = time_ms(lambda: att.folded_attend_plain(
-                qe, mem, mask_i, scale))
-            neg = torch.zeros(B, 1, S, device=dev, dtype=dtype).masked_fill(
-                ~mask[:, None, :], -1e9)
-
-            def library():
-                s = torch.matmul((qe * scale).to(dtype), mem.transpose(1, 2))
-                p = torch.softmax((s + neg).float(), dim=-1)
-                return torch.matmul(p.to(dtype), mem)
-
-            lms = time_ms(library)
-            nbytes = (2 * B * G * draw * 4 + B * S * draw * mem.element_size()
-                      + B * S * 4)
-            ops = 4.0 * B * G * S * draw
-            bms, by = bound_ms(nbytes, ops, "f32")
-            emit({"kernel": "folded_attend", "case": case, "B": B, "G": G,
-                  "S": S, "draw": draw, "dtype": TAG[dtype],
-                  "max_abs_err": e, "tol": 1e-4, "kernel_ms": ms,
-                  "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
-                  "bound_by": by})
-            if dtype == torch.bfloat16 and "long" not in case:
-                K["folded"].add_main_shape(ms, pms, lms, nbytes, ops, "f32")
-
+    for Bf in (B, 32):
+        pair = dict(kernel_ms=0.0, eager_ms=0.0, plain_ms=0.0,
+                    library_ms=0.0, bound_ms=0.0)
+        for case, S, draw in (("V", 128, 1024), ("A", 256, 128),
+                              ("V long", 300, 1024), ("A long", 800, 128)):
+            for dtype in (torch.float32, torch.bfloat16):
+                qe, mem, mask_i = folded_case(Bf, G, S, draw, dtype)
+                e, route = folded_check(f"{case} B={Bf} {TAG[dtype]}", qe,
+                                        mem, mask_i, scale)
+                ms, ems, pms, lms, nbytes, ops = folded_times(qe, mem, mask_i,
+                                                              scale)
+                bms, by = bound_ms(nbytes, ops, "f32")
+                emit({"kernel": f"folded_attend_{route}", "case": case,
+                      "B": Bf, "G": G, "S": S, "draw": draw,
+                      "dtype": TAG[dtype],
+                      "split": att.folded_split(Bf, S) if route == "tc"
+                      else None, "max_abs_err": e, "tol": 1e-4,
+                      "kernel_ms": ms, "eager_ms": ems, "plain_ms": pms,
+                      "library_ms": lms, "bound_ms": bms, "bound_by": by})
+                if route == "tc" and "long" not in case:
+                    for key, v in (("kernel_ms", ms), ("eager_ms", ems),
+                                   ("plain_ms", pms), ("library_ms", lms),
+                                   ("bound_ms", bms)):
+                        pair[key] += v
+                    if Bf == B:
+                        K["folded_tc"].add_main_shape(ms, pms, lms, nbytes,
+                                                      ops, "f32")
+                del qe, mem, mask_i
+        emit({"kernel": "folded_attend_tc", "case": "A + V pair", "B": Bf,
+              **pair})
+    # the CUDA-core route's own path: the audio and video calls of one
+    # layer-step of the reference phase's small f32 decode (B = 8, G = 2
+    # stacks x 2 heads, draw 128, Sv = 128, Sa = 160), each with a
+    # fully-masked row
+    for case, S in (("reference V", 128), ("reference A", 160)):
+        qe, mem, mask_i = folded_case(8, 4, S, 128, torch.float32)
+        e, route = folded_check(case, qe, mem, mask_i, 1.0 / math.sqrt(128))
+        ms, ems, pms, lms, nbytes, ops = folded_times(qe, mem, mask_i,
+                                                      1.0 / math.sqrt(128))
+        bms, by = bound_ms(nbytes, ops, "f32")
+        emit({"kernel": f"folded_attend_{route}", "case": case, "B": 8,
+              "G": 4, "S": S, "draw": 128, "dtype": "f32",
+              "max_abs_err": e, "tol": 1e-4, "kernel_ms": ms,
+              "eager_ms": ems, "plain_ms": pms, "library_ms": lms,
+              "bound_ms": bms, "bound_by": by})
+        K["folded_simt"].add_main_shape(ms, pms, lms, nbytes, ops, "f32")
+    # tensor-core edge cases, each with a fully-masked row where there is a
+    # mask: one key, S not a multiple of 16, blocks of the cluster with no
+    # keys (S = 129 over 4, 260 over 8, 300 over 8), long S, B = 1, G = 4,
+    # 12 (a ragged query chunk) and 32, no mask, draw 128 to 1024
+    for Be, Ge, S, draw, use_mask in (
+            (1, 8, 1, 1024, False), (2, 8, 1, 128, True),
+            (4, 8, 20, 128, True), (2, 8, 129, 384, True),
+            (2, 8, 260, 128, True), (2, 32, 300, 1024, False),
+            (3, 4, 800, 128, True), (1, 8, 300, 1024, False),
+            (5, 12, 129, 1024, True), (64, 8, 128, 1024, True),
+            (7, 32, 800, 512, True)):
+        qe, mem, mask_i = folded_case(Be, Ge, S, draw, torch.bfloat16,
+                                      use_mask, qscale=0.3)
+        e, route = folded_check("edge", qe, mem, mask_i, 1.0 / 16)
+        if route != "tc":
+            raise AssertionError(f"folded edge case took the {route} route")
+        emit({"kernel": "folded_attend_tc", "case": "edge", "B": Be,
+              "G": Ge, "S": S, "draw": draw, "mask": use_mask,
+              "split": att.folded_split(Be, S), "max_abs_err": e,
+              "tol": 1e-4})
+    # views, taken with their strides: q_eff every other query of a wider
+    # tensor, mem the first 128 rows of a 136-row memory
+    qe, mem, mask_i = folded_case(4, 16, 136, 1024, torch.bfloat16,
+                                  qscale=0.3)
+    qe, mem, mask_i = qe[:, ::2], mem[:, :128], mask_i[:, :128].contiguous()
+    mask_i[3] = 0
+    e, route = folded_check("strided views", qe, mem, mask_i, 1.0 / 16)
+    emit({"kernel": f"folded_attend_{route}", "case": "edge, strided views",
+          "q_stride": list(qe.stride()), "mem_stride": list(mem.stride()),
+          "max_abs_err": e, "tol": 1e-4})
+    del qe, mem, mask_i
+    # one tensor-core call (the serve's video call) is one kernel launch: no
+    # scale, cast or copy kernel beside it
+    qe, mem, mask_i = folded_case(B, G, 128, 1024, torch.bfloat16)
+    types = graph_node_types(lambda: att.folded_attend(qe, mem, mask_i,
+                                                       scale))
+    emit({"kernel": "folded_attend_tc", "case": "graph of one call",
+          "node_types": types})
+    if types != [0]:
+        raise AssertionError(f"one folded_attend_tc call is {types}")
+    del qe, mem, mask_i
     # ---- critic cells: the 4 LSTM and 2 GRU cells of one token (f32), over
     # weights packed once (not timed: a decode packs once per call)
     def cell_inputs(n_gates, Bc, Kin, Hc):
@@ -414,9 +598,9 @@ def make_feats(B, Sv, Sa, d_v, d_a, device, seed=0):
 
 def phase_reference(K):
     """Small f32 model: kernels on the card vs plain versions on the CPU.
-    f32 attention takes the CUDA-core flash route, so this is the run whose
-    launches count for flash_attention_simt (the bf16 serve never takes
-    it)."""
+    f32 attention takes the CUDA-core flash and folded routes, so this is
+    the run whose launches count for flash_attention_simt and
+    folded_attend_simt (the bf16 serve never takes those routes)."""
     import torch
 
     from bmhrl_tpu_torch.ops import _cuda
@@ -434,11 +618,10 @@ def phase_reference(K):
         out[device] = (tok.cpu(), prob.cpu())
         if device == "cuda":
             launches = dict(_cuda.LAUNCHES)
-    n_simt = launches["flash_attention_simt"]
-    K["flash_attention_simt"].rec["launches"] = n_simt
-    if n_simt <= 0:
-        raise AssertionError("the f32 decode never launched the CUDA-core "
-                             "flash route")
+    for name in ("flash_attention_simt", "folded_attend_simt"):
+        K[name].rec["launches"] = launches[name]
+        if launches[name] <= 0:
+            raise AssertionError(f"the f32 decode never launched {name}")
     same = bool(torch.equal(out["cuda"][0], out["cpu"][0]))
     perr = float((out["cuda"][1] - out["cpu"][1]).abs().max())
     emit({"phase": "reference", "dims": "small", "dtype": "f32",
@@ -529,9 +712,12 @@ def phase_serve(K):
     if stats.padded_rows == 0:
         raise AssertionError("the run had no padded tail batch")
     # every kernel of the bf16 serving path launched; the CUDA-core flash
-    # route is not on it (its launches are counted in the reference phase)
-    if launches.pop("flash_attention_simt"):
-        raise AssertionError("the bf16 serve took the CUDA-core flash route")
+    # and folded routes are not on it (their launches are counted in the
+    # reference phase)
+    for name in ("flash_attention_simt", "folded_attend_simt"):
+        if launches.pop(name):
+            raise AssertionError(f"the bf16 serve took the CUDA-core route "
+                                 f"{name}")
     for name, n in launches.items():
         K[name].rec["launches"] = n
         if n <= 0:
@@ -571,6 +757,8 @@ def phase_serve(K):
           "free_running_token_agreement": free})
     if forced < 0.95:
         raise AssertionError(f"token agreement {forced} < 0.95")
+    # the profiler runs last: once it has traced, the host launches more
+    # slowly
     profile_decode(model)
 
 
@@ -629,8 +817,8 @@ def profile_decode(model, B=256):
         decode(model, feats, masks, 30, BOS, -1, PAD)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = ("flash_tc_kernel", "flash_simt_kernel", "folded_kernel",
-               "lstm_cell_kernel", "gru_cell_kernel")
+    kernels = ("flash_tc_kernel", "flash_simt_kernel", "folded_tc_kernel",
+               "folded_kernel", "lstm_cell_kernel", "gru_cell_kernel")
     groups = dict.fromkeys(kernels + ("gemm", "other"), 0.0)
     counts = dict.fromkeys(groups, 0)
     for evt in prof.key_averages():
@@ -647,6 +835,12 @@ def profile_decode(model, B=256):
         groups[key] += us / 1e3
         counts[key] += evt.count
     busy = sum(groups.values())
+    # the bf16 decode takes the tensor-core folded route: one launch per
+    # branch, layer and token
+    folded_per_batch = 2 * model.att_layers * 30
+    if busy and (counts["folded_tc_kernel"] != folded_per_batch
+                 or counts["folded_kernel"]):
+        raise AssertionError(f"folded launches in a decode: {counts}")
     emit({"phase": "profile", "B": B, "Sv": 128, "Sa": 256, "tokens": 30,
           "wall_ms": wall_ms, "device_ms": groups, "device_busy_ms": busy,
           "device_idle_share": (1 - busy / wall_ms) if busy else None,
@@ -687,22 +881,38 @@ def main() -> int:
                         or "entry function" in ln]
                     for n in _cuda.SOURCES
                     if (_cuda.BUILD_DIR / f"{n}.log").exists()}})
+    # the tensor-core folded kernel keeps everything in registers
+    entry, spills = "", {}
+    for ln in (_cuda.BUILD_DIR / "folded_attention.log").read_text() \
+            .splitlines():
+        if "entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "spill" in ln and "folded_tc_kernel" in entry:
+            spills[entry] = ln.strip()
+    emit({"phase": "build", "folded_tc_kernel_spills": spills})
+    if not spills or any("0 bytes spill stores, 0 bytes spill loads"
+                         not in ln for ln in spills.values()):
+        raise AssertionError(f"folded_tc_kernel spills: {spills}")
 
     src = "bmhrl_tpu_torch/csrc/"
     flash_tpu = "bmhrl_tpu/ops/attention.py:89 (+ :269)"
+    folded_tpu = "bmhrl_tpu/ops/attention.py:568"
     K = {"flash_tc": Kernel("flash_attention_tc", src + "flash_attention.cu",
                             flash_tpu),
          "flash_simt": Kernel("flash_attention_simt",
                               src + "flash_attention.cu", flash_tpu),
-         "folded": Kernel("folded_attend", src + "folded_attention.cu",
-                          "bmhrl_tpu/ops/attention.py:568"),
+         "folded_tc": Kernel("folded_attend_tc", src + "folded_attention.cu",
+                             folded_tpu),
+         "folded_simt": Kernel("folded_attend_simt",
+                               src + "folded_attention.cu", folded_tpu),
          "lstm_cell": Kernel("lstm_cell", src + "critic_cells.cu",
                              "bmhrl_tpu/ops/critic_kernels.py:64"),
          "gru_cell": Kernel("gru_cell", src + "critic_cells.cu",
                             "bmhrl_tpu/ops/critic_kernels.py:87")}
     K["flash_attention_tc"] = K["flash_tc"]
     K["flash_attention_simt"] = K["flash_simt"]
-    K["folded_attend"] = K["folded"]
+    K["folded_attend_tc"] = K["folded_tc"]
+    K["folded_attend_simt"] = K["folded_simt"]
 
     phases = (("kernels", lambda: phase_kernels(K)),
               ("reference", lambda: phase_reference(K)),
@@ -714,8 +924,8 @@ def main() -> int:
         torch.cuda.synchronize()
         emit({"phase": name, "seconds": time.perf_counter() - t0})
 
-    kernels = [K[n].rec for n in ("flash_tc", "flash_simt", "folded",
-                                  "lstm_cell", "gru_cell")]
+    kernels = [K[n].rec for n in ("flash_tc", "flash_simt", "folded_tc",
+                                  "folded_simt", "lstm_cell", "gru_cell")]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

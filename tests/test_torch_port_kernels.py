@@ -246,8 +246,9 @@ def test_cpu_wrappers_take_plain_versions_and_never_launch():
     ck.lstm_cell(x, h, c, w_ih, w_hh, b_ih)
     assert all(n == 0 for n in _cuda.LAUNCHES.values()), _cuda.LAUNCHES
     assert set(_cuda.LAUNCHES) == {"flash_attention_tc",
-                                   "flash_attention_simt", "folded_attend",
-                                   "lstm_cell", "gru_cell"}
+                                   "flash_attention_simt", "folded_attend_tc",
+                                   "folded_attend_simt", "lstm_cell",
+                                   "gru_cell"}
 
 
 def test_flash_gate_matches_jax():
