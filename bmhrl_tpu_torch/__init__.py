@@ -1,4 +1,6 @@
-"""PyTorch/CUDA port of bmhrl_tpu's greedy serving path for NVIDIA Hopper.
+"""PyTorch/CUDA port of bmhrl_tpu for NVIDIA Hopper: greedy serving of the
+bimodal hierarchical captioner and its training steps
+(``train.steps.StepFactory``).
 
 The JAX package ``bmhrl_tpu`` is the reference and is never imported here.
 Entry points take a ``device`` argument: ``"cuda"`` by default (an error

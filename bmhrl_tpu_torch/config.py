@@ -1,9 +1,10 @@
-"""Serving configuration: the fields of bmhrl_tpu.config.Config that the
-greedy serving path reads, with the same names and defaults."""
+"""Configuration: the fields of bmhrl_tpu.config.Config that the greedy
+serving path and the training steps read, with the same names and
+defaults."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -35,6 +36,19 @@ class Config:
     # the production setting: encoder attention sites that qualify run the
     # flash kernel
     use_pallas_attention: bool = True
+    # training
+    dout_p: float = 0.1
+    smoothing: float = 0.7
+    grad_clip: Optional[float] = None
+    betas: Tuple[float, float] = (0.9, 0.999)
+    # the captioner's Adam eps as the JAX package writes it (1e-4; the
+    # reference's effective value is 1e-8, see VERDICT.md)
+    eps: float = 1e-4
+    weight_decay: float = 0.0
+    rl_cap_warmstart_lr: float = 1e-4
+    rl_cap_lr: float = 1e-4
+    rl_value_function_lr: float = 1e-4
+    rl_stabilize: bool = True
 
     def agent_kwargs(self, voc_size: int) -> Dict:
         """``BMHrlAgent`` arguments of this configuration."""
@@ -44,7 +58,8 @@ class Config:
                     d_audio=self.d_aud, d_model=self.d_model,
                     d_model_caps=self.d_model_caps,
                     att_heads=self.rl_att_heads,
-                    att_layers=self.rl_att_layers, d_goal=self.rl_goal_d,
+                    att_layers=self.rl_att_layers, dout_p=self.dout_p,
+                    d_goal=self.rl_goal_d,
                     d_ff_v=self.rl_ff_v, d_ff_a=self.rl_ff_a,
                     d_ff_c=self.rl_ff_c,
                     critic_score_threshold=self.rl_critic_score_threshhold,

@@ -9,8 +9,9 @@
 // 227 KB, so both kernels here stream the keys with a running max m,
 // normaliser l and an f32 accumulator, which covers both TPU kernels at
 // every source length. Two routes (ops/attention.py, flash_route):
-//   flash_tc_kernel    bf16 at d in {128, 256}: the serving path, on the
-//                      tensor cores;
+//   flash_tc_kernel    bf16 at d in {128, 256}: the serving and training
+//                      paths, on the tensor cores (training's gradient is
+//                      the recompute in ops/attention.py, no kernel);
 //   flash_simt_kernel  f32 at d in {128..512}, bf16 at d in {384, 512}: on
 //                      the CUDA cores in f32.
 //

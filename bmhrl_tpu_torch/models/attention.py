@@ -1,5 +1,5 @@
 """Cross-dimensional multi-headed attention (the port of
-bmhrl_tpu/models/attention.py, serving surface only).
+bmhrl_tpu/models/attention.py: the full forward and the decode steps).
 
 Scores, softmax and accumulation are f32; products take operands rounded to
 the compute dtype (``blocks.rounded``), as the JAX package's bf16 einsums
@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from bmhrl_tpu_torch.models.blocks import Dense, rounded
+from bmhrl_tpu_torch.models.blocks import Dense, Draws, dropout, rounded
 from bmhrl_tpu_torch.ops import attention as fused
 
 NEG_INF = -1e9
@@ -46,13 +46,14 @@ class MultiheadedAttention(nn.Module):
     def __init__(self, d_model_Q: int, d_model_K: int, d_model_V: int, H: int,
                  d_model: Optional[int] = None,
                  dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
-                 device=None):
+                 device=None, dout_p: float = 0.0):
         super().__init__()
         d = d_model if d_model is not None else d_model_Q
         assert d % H == 0
         self.H, self.d, self.d_k = H, d, d // H
         self.dtype = dtype
         self.use_flash = use_flash
+        self.dout_p = dout_p
         self.linear_Q2d = Dense(d_model_Q, d, dtype, device)
         self.linear_K2d = Dense(d_model_K, d, dtype, device)
         self.linear_V2d = Dense(d_model_V, d, dtype, device)
@@ -87,10 +88,13 @@ class MultiheadedAttention(nn.Module):
         return self.linear_Q2d(Q), k3, v3
 
     def forward(self, Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """Full (non-causal) attention with a (B, 1, Sk) key pad mask or
-        None. Sites that pass the flash gate run ``flash_attention_bsd`` on
-        the un-headed projections."""
+                mask: Optional[torch.Tensor],
+                draws: Optional[Draws] = None) -> torch.Tensor:
+        """Full (non-causal) attention with a (B, 1, Sk) key pad mask, a
+        (B, Sq, Sk) mask (the caption mask) or None, then dropout on the
+        attention output (``draws``; None: none). The JAX package's gate:
+        sites with a key pad mask (or none) that pass ``flash_qualifies``
+        run ``flash_attention_bsd`` on the un-headed projections."""
         B, Sq, _ = Q.shape
         q3, k3, v3 = self._project_qkv(Q, K, V)
         key_pad = mask is None or mask.shape[1] == 1
@@ -98,10 +102,12 @@ class MultiheadedAttention(nn.Module):
                 and fused.flash_qualifies(K.shape[1], self.d_k)):
             key_mask = None if mask is None else mask[:, 0, :]
             out = fused.flash_attention_bsd(q3, k3, v3, key_mask, self.H)
-            return self.linear_d2Q(out.to(self.dtype))
+            out = dropout(out.to(self.dtype), self.dout_p, draws)
+            return self.linear_d2Q(out)
         m4 = None if mask is None else mask[:, None, :, :]
         out = scaled_dot_attention(self._heads(q3), self._heads(k3),
                                    self._heads(v3), m4)
+        out = dropout(out, self.dout_p, draws)
         return self.linear_d2Q(out.transpose(1, 2).reshape(B, Sq, self.d))
 
     def attend_step_shared(self, h: torch.Tensor, k_cache: torch.Tensor,

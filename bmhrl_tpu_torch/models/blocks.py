@@ -3,10 +3,16 @@
 Parameters are f32 masters. ``Dense`` keeps flax's ``nn.Dense(dtype=...)``
 cast points: input, weight and bias are cast to the compute dtype and the
 output stays in it, so bf16 on the card rounds where the TPU rounded.
+
+Training forwards take a ``Draws``: every random draw of a step comes from
+it, so two forwards with the draws of one seed are identical and a test can
+feed chosen draws. ``draws=None`` is the deterministic forward (no
+dropout).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +30,63 @@ def sinusoid_table(seq_len: int, d_model: int) -> np.ndarray:
     tab[:, even] = np.sin(pos / (10000.0 ** (even / d_model)))
     tab[:, odd] = np.cos(pos / (10000.0 ** (odd / d_model)))
     return tab.astype(np.float32)
+
+
+class Draws:
+    """The random draws of one training step, one ``torch.Generator`` per
+    stream, seeded from ``seed`` (as the JAX step splits its key): synonym
+    noise, dropout keep masks, exploration normals, the RL sample. Two
+    ``Draws`` of one seed give the same streams, so a step that re-runs a
+    forward repeats its dropout and noise. Generators live on ``device``. A
+    test subclasses it to feed chosen draws."""
+
+    STREAMS = ("synonym", "dropout", "noise", "sample")
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        seeds = np.random.SeedSequence(seed).generate_state(len(self.STREAMS))
+        self._gens = {name: torch.Generator(self.device).manual_seed(int(s))
+                      for name, s in zip(self.STREAMS, seeds)}
+
+    def _draw(self, fn, stream: str, *args) -> torch.Tensor:
+        """fn(*args) (torch.rand, randn or randint) from ``stream``."""
+        return fn(*args, generator=self._gens[stream], device=self.device)
+
+    def keep(self, shape, keep_prob: float) -> torch.Tensor:
+        """Dropout keep mask: True with probability ``keep_prob``."""
+        return self._draw(torch.rand, "dropout", shape) < keep_prob
+
+    def normal(self, shape) -> torch.Tensor:
+        """Standard normals (f32) of the Manager's exploration noise."""
+        return self._draw(torch.randn, "noise", shape)
+
+    def synonym(self, shape, voc_size: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(u1, u2, words) of ``synonym_noise``: two uniforms in [0, 1) and
+        random words in [2, voc_size)."""
+        u1 = self._draw(torch.rand, "synonym", shape)
+        u2 = self._draw(torch.rand, "synonym", shape)
+        words = self._draw(torch.randint, "synonym", 2, voc_size,
+                           tuple(shape))
+        return u1, u2, words
+
+    def categorical(self, logp: torch.Tensor) -> torch.Tensor:
+        """One sample per row of log-probabilities (..., V): Gumbel-max, as
+        ``jax.random.categorical``."""
+        u = self._draw(torch.rand, "sample", logp.shape)
+        u = u.clamp_min_(torch.finfo(torch.float32).tiny)
+        return torch.argmax(logp - torch.log(-torch.log(u)), dim=-1)
+
+
+def dropout(x: torch.Tensor, p: float, draws: Optional[Draws]) -> torch.Tensor:
+    """flax ``nn.Dropout(p)``: keep with probability 1 - p and divide by it
+    in x's dtype (flax's weakly typed division); identity when ``draws``
+    is None or p is 0."""
+    if draws is None or p == 0.0:
+        return x
+    keep = draws.keep(x.shape, 1.0 - p)
+    kp = torch.tensor(1.0 - p, dtype=x.dtype).item()  # exact in x's dtype
+    return torch.where(keep, x / kp, 0.0)
 
 
 def rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -53,15 +116,18 @@ MAX_POSITIONS = 3660
 
 
 class PositionalEncoder(nn.Module):
-    """x + sinusoid table (in x's dtype); dropout is off at inference."""
+    """x + sinusoid table (in x's dtype), then dropout."""
 
-    def __init__(self, d_model: int, device=None):
+    def __init__(self, d_model: int, dout_p: float = 0.0, device=None):
         super().__init__()
+        self.dout_p = dout_p
         table = torch.from_numpy(sinusoid_table(MAX_POSITIONS, d_model))
         self.register_buffer("table", table.to(device), persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.table[: x.shape[1]].to(x.dtype)
+    def forward(self, x: torch.Tensor,
+                draws: Optional[Draws] = None) -> torch.Tensor:
+        return dropout(x + self.table[: x.shape[1]].to(x.dtype), self.dout_p,
+                       draws)
 
 
 class VocabularyEmbedder(nn.Module):
@@ -77,31 +143,35 @@ class VocabularyEmbedder(nn.Module):
 
 
 class PositionwiseFeedForward(nn.Module):
-    """fc1 -> relu -> fc2 in the compute dtype."""
+    """fc1 -> relu -> dropout -> fc2 in the compute dtype."""
 
     def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype,
-                 device=None):
+                 device=None, dout_p: float = 0.0):
         super().__init__()
+        self.dout_p = dout_p
         self.fc1 = Dense(d_model, d_ff, dtype, device)
         self.fc2 = Dense(d_ff, d_model, dtype, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(torch.relu(self.fc1(x)))
+    def forward(self, x: torch.Tensor,
+                draws: Optional[Draws] = None) -> torch.Tensor:
+        return self.fc2(dropout(torch.relu(self.fc1(x)), self.dout_p, draws))
 
 
 class ResidualConnection(nn.Module):
-    """Prenorm residual x + sublayer(LN(x)), split into ``pre`` (f32
-    LayerNorm) and ``post`` (the residual add) for the incremental decoder."""
+    """Prenorm residual x + dropout(sublayer(LN(x))), split into ``pre``
+    (f32 LayerNorm) and ``post`` (dropout and the residual add)."""
 
-    def __init__(self, size: int, device=None):
+    def __init__(self, size: int, device=None, dout_p: float = 0.0):
         super().__init__()
+        self.dout_p = dout_p
         self.norm = nn.LayerNorm(size, eps=1e-5, device=device)
 
     def pre(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x.float())
 
-    def post(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
-        return x + res
+    def post(self, x: torch.Tensor, res: torch.Tensor,
+             draws: Optional[Draws] = None) -> torch.Tensor:
+        return x + dropout(res, self.dout_p, draws)
 
 
 class AReLU(nn.Module):

@@ -1,16 +1,18 @@
-"""BMHRL agent, serving surface: bimodal encoder, the two fusion decoder
-stacks stepped one token at a time, the Manager goal step and the Worker
-vocabulary head (the port of bmhrl_tpu/models/bmhrl.py).
+"""BMHRL agent and its two value functions (the port of
+bmhrl_tpu/models/bmhrl.py): bimodal encoder, the two fusion decoder stacks,
+the Manager's goals and the Worker's vocabulary head, both teacher-forced
+over a whole caption (``BMHrlAgent.forward``, training) and stepped one
+token at a time (the decode).
 
 Module and parameter names follow the JAX package's param tree
-(``weights.load_jax_params`` maps one onto the other). The teacher-forced
-full forward, the value functions and exploration belong to the training
-path and are not ported here.
+(``weights.load_jax_params`` maps one onto the other). A training forward
+takes ``deterministic=False`` and a ``blocks.Draws`` for its dropout masks
+and exploration noise, where the JAX package takes rngs.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -18,12 +20,13 @@ from torch import nn
 from bmhrl_tpu_torch import resolve_device
 from bmhrl_tpu_torch.models.attention import (FoldedWeights,
                                               MultiheadedAttention)
-from bmhrl_tpu_torch.models.blocks import (Dense, PositionalEncoder,
+from bmhrl_tpu_torch.models.blocks import (Dense, Draws, PositionalEncoder,
                                            PositionwiseFeedForward,
                                            ResidualConnection,
-                                           VocabularyEmbedder, rounded)
+                                           VocabularyEmbedder, dropout,
+                                           rounded)
 from bmhrl_tpu_torch.models.critic import SegmentCritic
-from bmhrl_tpu_torch.ops.segments import frontier_goal
+from bmhrl_tpu_torch.ops.segments import expand_goals, frontier_goal
 
 NEG_INF = -1e9
 
@@ -33,10 +36,10 @@ class BMEncoderLayer(nn.Module):
     feed-forward per modality; prenorm residuals."""
 
     def __init__(self, d_model_M1, d_model_M2, d_model, d_ff_M1, d_ff_M2, H,
-                 dtype, use_flash, device):
+                 dtype, use_flash, device, dout_p=0.0):
         super().__init__()
         att = dict(d_model=d_model, dtype=dtype, use_flash=use_flash,
-                   device=device)
+                   device=device, dout_p=dout_p)
         self.self_att_M1 = MultiheadedAttention(
             d_model_M1, d_model_M1, d_model_M1, H, **att)
         self.self_att_M2 = MultiheadedAttention(
@@ -45,25 +48,32 @@ class BMEncoderLayer(nn.Module):
             d_model_M1, d_model_M2, d_model_M2, H, **att)
         self.bi_modal_att_M2 = MultiheadedAttention(
             d_model_M2, d_model_M1, d_model_M1, H, **att)
-        self.ff_M1 = PositionwiseFeedForward(d_model_M1, d_ff_M1, dtype, device)
-        self.ff_M2 = PositionwiseFeedForward(d_model_M2, d_ff_M2, dtype, device)
+        self.ff_M1 = PositionwiseFeedForward(d_model_M1, d_ff_M1, dtype, device,
+                                             dout_p)
+        self.ff_M2 = PositionwiseFeedForward(d_model_M2, d_ff_M2, dtype, device,
+                                             dout_p)
         for i in range(3):
             self.add_module(f"res_M1_{i}",
-                            ResidualConnection(d_model_M1, device))
+                            ResidualConnection(d_model_M1, device, dout_p))
             self.add_module(f"res_M2_{i}",
-                            ResidualConnection(d_model_M2, device))
+                            ResidualConnection(d_model_M2, device, dout_p))
 
-    def forward(self, M1, M2, M1_mask, M2_mask):
+    def forward(self, M1, M2, M1_mask, M2_mask, draws=None):
+        """``draws``: dropout draws of a training forward (None: none), in
+        the JAX layer's order: each sublayer's, then its residual's."""
+        d = draws
         h = self.res_M1_0.pre(M1)
-        M1 = self.res_M1_0.post(M1, self.self_att_M1(h, h, h, M1_mask))
+        M1 = self.res_M1_0.post(M1, self.self_att_M1(h, h, h, M1_mask, d), d)
         h = self.res_M2_0.pre(M2)
-        M2 = self.res_M2_0.post(M2, self.self_att_M2(h, h, h, M2_mask))
+        M2 = self.res_M2_0.post(M2, self.self_att_M2(h, h, h, M2_mask, d), d)
         M1m2 = self.res_M1_1.post(M1, self.bi_modal_att_M1(
-            self.res_M1_1.pre(M1), M2, M2, M2_mask))
+            self.res_M1_1.pre(M1), M2, M2, M2_mask, d), d)
         M2m1 = self.res_M2_1.post(M2, self.bi_modal_att_M2(
-            self.res_M2_1.pre(M2), M1, M1, M1_mask))
-        M1m2 = self.res_M1_2.post(M1m2, self.ff_M1(self.res_M1_2.pre(M1m2)))
-        M2m1 = self.res_M2_2.post(M2m1, self.ff_M2(self.res_M2_2.pre(M2m1)))
+            self.res_M2_1.pre(M2), M1, M1, M1_mask, d), d)
+        M1m2 = self.res_M1_2.post(M1m2, self.ff_M1(self.res_M1_2.pre(M1m2),
+                                                   d), d)
+        M2m1 = self.res_M2_2.post(M2m1, self.ff_M2(self.res_M2_2.pre(M2m1),
+                                                   d), d)
         return M1m2, M2m1
 
 
@@ -74,22 +84,25 @@ class BMEncoder(nn.Module):
         for i in range(N):
             self.add_module(f"layer_{i}", BMEncoderLayer(**layer_kw))
 
-    def forward(self, V, A, V_mask, A_mask):
+    def forward(self, V, A, V_mask, A_mask, draws=None):
         for i in range(self.N):
-            V, A = getattr(self, f"layer_{i}")(V, A, V_mask, A_mask)
+            V, A = getattr(self, f"layer_{i}")(V, A, V_mask, A_mask, draws)
         return V, A  # (video-side memory, audio-side memory)
 
 
 class BMFusionLayer(nn.Module):
-    """Caption decoder layer, stepped one position at a time: cached causal
-    self-attention, folded cross-attention into the audio and video
-    memories, per-branch LayerNorm, sigmoid-gated A/V blend. The reference
-    builds a feed-forward here that it never applies; it is omitted."""
+    """Caption decoder layer: causal self-attention, cross-attention into
+    the audio and video memories, per-branch LayerNorm, sigmoid-gated A/V
+    blend; over a whole caption (``forward``) or stepped one position at a
+    time with cached self-attention and folded cross-attention. The
+    reference builds a feed-forward here that it never applies; it is
+    omitted."""
 
     def __init__(self, d_model_A, d_model_V, d_model_C, d_model, H, dtype,
-                 device):
+                 device, use_flash=True, dout_p=0.0):
         super().__init__()
-        att = dict(d_model=d_model, dtype=dtype, device=device)
+        att = dict(d_model=d_model, dtype=dtype, device=device,
+                   use_flash=use_flash, dout_p=dout_p)
         self.dtype = dtype
         self.self_att = MultiheadedAttention(
             d_model_C, d_model_C, d_model_C, H, **att)
@@ -97,12 +110,32 @@ class BMFusionLayer(nn.Module):
             d_model_C, d_model_A, d_model_A, H, **att)
         self.enc_att_V = MultiheadedAttention(
             d_model_C, d_model_V, d_model_V, H, **att)
-        self.res_self_att = ResidualConnection(d_model_C, device)
-        self.res_enc_att_A = ResidualConnection(d_model_C, device)
-        self.res_enc_att_V = ResidualConnection(d_model_C, device)
+        self.res_self_att = ResidualConnection(d_model_C, device, dout_p)
+        self.res_enc_att_A = ResidualConnection(d_model_C, device, dout_p)
+        self.res_enc_att_V = ResidualConnection(d_model_C, device, dout_p)
         self.normCA = nn.LayerNorm(d_model_C, eps=1e-5, device=device)
         self.normCV = nn.LayerNorm(d_model_C, eps=1e-5, device=device)
         self.a_v_constant = nn.Parameter(torch.zeros(1, device=device))
+
+    def _blend(self, Ca, Cv):
+        Ca = self.normCA(Ca.float())
+        Cv = self.normCV(Cv.float())
+        av = torch.sigmoid(self.a_v_constant.clamp(-2.0, 2.0))
+        return (av * Cv + (1.0 - av) * Ca).to(self.dtype)
+
+    def forward(self, C, Av, Va, masks, draws=None):
+        """Teacher-forced layer: C (B, L, Dc) under the caption mask
+        ``masks["C_mask"]`` (B, L, L); Av, Va the encoder memories under
+        their (B, 1, S) pad masks. ``draws``: dropout draws (None: none)."""
+        d = draws
+        h = self.res_self_att.pre(C)
+        C = self.res_self_att.post(
+            C, self.self_att(h, h, h, masks["C_mask"], d), d)
+        Ca = self.res_enc_att_A.post(C, self.enc_att_A(
+            self.res_enc_att_A.pre(C), Av, Av, masks["A_mask"], d), d)
+        Cv = self.res_enc_att_V.post(C, self.enc_att_V(
+            self.res_enc_att_V.pre(C), Va, Va, masks["V_mask"], d), d)
+        return self._blend(Ca, Cv)
 
     def step_weights(self) -> Dict:
         """Loop-invariant weights of one decode (merged QKV in the compute
@@ -133,10 +166,7 @@ class BMFusionLayer(nn.Module):
         Ca = self.res_enc_att_A.post(C, out_a.to(C.dtype))
         out_v = self.enc_att_V.folded_out(ctx_v, sw["V"])[:, None, :]
         Cv = self.res_enc_att_V.post(C, out_v.to(C.dtype))
-        Ca = self.normCA(Ca.float())
-        Cv = self.normCV(Cv.float())
-        av = torch.sigmoid(self.a_v_constant.clamp(-2.0, 2.0))
-        return (av * Cv + (1.0 - av) * Ca).to(self.dtype)
+        return self._blend(Ca, Cv)
 
 
 class BMFusion(nn.Module):
@@ -149,29 +179,69 @@ class BMFusion(nn.Module):
     def layer(self, i: int) -> BMFusionLayer:
         return getattr(self, f"layer_{i}")
 
+    def forward(self, C, Av, Va, masks, draws=None):
+        for i in range(self.N):
+            C = self.layer(i)(C, Av, Va, masks, draws)
+        return C
+
 
 class Manager(nn.Module):
-    """Goal emitter: f32 linear(d_caps -> d_goal), then the frontier goal
-    expansion (no exploration noise on the serving path)."""
+    """Goal emitter: f32 linear(d_caps -> d_goal) and dropout, optional
+    exploration noise scaled by detached nan-statistics of the activations,
+    then goal expansion over the segments (``forward``) or at the decode
+    frontier (``goal_step``, no noise)."""
 
-    def __init__(self, d_model_caps: int, d_goal: int, device):
+    # the noise's mean and std are the activations' over these factors
+    MEAN_FACTOR = 10.0
+    STD_FACTOR = 5.0
+
+    def __init__(self, d_model_caps: int, d_goal: int, device,
+                 dout_p: float = 0.0):
         super().__init__()
+        self.d_goal = d_goal
+        self.dout_p = dout_p
         self.linear = Dense(d_model_caps, d_goal, torch.float32, device)
 
     def goal_step(self, mf_t, label_t, has_boundary):
         return frontier_goal(self.linear(mf_t.float()), label_t, has_boundary)
+
+    def forward(self, x, critic_mask, exploration: bool = False,
+                drop: Optional[Draws] = None,
+                noise: Optional[Draws] = None):
+        """x (B, L, Dc) manager features, critic_mask (B, L) segment labels
+        -> (B, L, d_goal) goals. ``drop``: dropout draws (None: none);
+        ``noise``: the exploration normal's draws (needed if
+        ``exploration``)."""
+        x = dropout(self.linear(x.float()), self.dout_p, drop)
+        if exploration:
+            xd = x.detach()
+            centre = torch.nanmean(xd)
+            mean = centre / self.MEAN_FACTOR
+            std = torch.sqrt(torch.nanmean((xd - centre).abs() ** 2)
+                             ) / self.STD_FACTOR
+            x = x + (noise.normal((self.d_goal,)) * std + mean - 0.5 * mean)
+        return expand_goals(x, critic_mask)
 
 
 class Worker(nn.Module):
     """Goal-conditioned word head: 2-head goal attention over the worker
     features, concat, f32 projection to vocabulary log-probs."""
 
-    def __init__(self, voc_size, d_in, d_goal, d_model, dtype, device):
+    def __init__(self, voc_size, d_in, d_goal, d_model, dtype, device,
+                 dout_p: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.goal_attention = MultiheadedAttention(
-            d_goal, d_in, d_in, 2, d_model, dtype=dtype, device=device)
+            d_goal, d_in, d_in, 2, d_model, dtype=dtype, device=device,
+            dout_p=dout_p)
         self.projection = Dense(d_in + d_goal, voc_size, torch.float32, device)
+
+    def forward(self, x, goal, mask, draws=None):
+        """x (B, L, Dc) worker features, goal (B, L, d_goal), mask the
+        caption mask -> (B, L, V) log-probs."""
+        gc = self.goal_attention(goal.to(self.dtype), x, x, mask, draws)
+        h = torch.cat([x, gc.to(x.dtype)], dim=-1)
+        return torch.log_softmax(self.projection(h.float()), dim=-1)
 
     def step_raw(self, wf_t, goal_t, wf_cache, t, key_mask,
                  fw: FoldedWeights):
@@ -198,16 +268,16 @@ class Worker(nn.Module):
 
 
 class BMHrlAgent(nn.Module):
-    """Bimodal hierarchical captioner (serving surface). Defaults are the
-    flagship's: vocabulary given, d_model 1024, 4 heads, 2 layers, d_caps
-    300, bf16 compute. Parameters are f32 on ``device`` ("cuda" by default;
+    """Bimodal hierarchical captioner. Defaults are the flagship's:
+    vocabulary given, d_model 1024, 4 heads, 2 layers, d_caps 300, dropout
+    0.1, bf16 compute. Parameters are f32 on ``device`` ("cuda" by default;
     "cpu" runs the kernels' plain versions; "meta" builds shapes only)."""
 
     def __init__(self, voc_size: int, d_video: int = 1024, d_audio: int = 128,
                  d_model: int = 1024, d_model_caps: int = 300,
-                 att_heads: int = 4, att_layers: int = 2, d_goal: int = 64,
-                 d_ff_v: int = 1024, d_ff_a: int = 512, d_ff_c: int = 2048,
-                 critic_score_threshold: float = 0.25,
+                 att_heads: int = 4, att_layers: int = 2, dout_p: float = 0.1,
+                 d_goal: int = 64, d_ff_v: int = 1024, d_ff_a: int = 512,
+                 d_ff_c: int = 2048, critic_score_threshold: float = 0.25,
                  dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
                  device="cuda"):
         super().__init__()
@@ -223,34 +293,72 @@ class BMHrlAgent(nn.Module):
         # d_ff_c sizes the feed-forward the reference builds in each fusion
         # layer but never applies; kept for the JAX package's signature
         self.d_ff_c = d_ff_c
-        self.pos_enc_A = PositionalEncoder(d_audio, device=device)
-        self.pos_enc_V = PositionalEncoder(d_video, device=device)
-        self.pos_enc_C = PositionalEncoder(d_model_caps, device=device)
+        self.pos_enc_A = PositionalEncoder(d_audio, dout_p, device)
+        self.pos_enc_V = PositionalEncoder(d_video, dout_p, device)
+        self.pos_enc_C = PositionalEncoder(d_model_caps, dout_p, device)
         self.critic = SegmentCritic(d_model_caps, device)
         self.emb_C = VocabularyEmbedder(voc_size, d_model_caps, device)
         self.bm_enc = BMEncoder(
             att_layers, d_model_M1=d_video, d_model_M2=d_audio,
             d_model=d_model, d_ff_M1=d_ff_v, d_ff_M2=d_ff_a, H=att_heads,
-            dtype=dtype, use_flash=use_flash, device=device)
+            dtype=dtype, use_flash=use_flash, device=device, dout_p=dout_p)
         fus = dict(d_model_A=d_audio, d_model_V=d_video,
                    d_model_C=d_model_caps, d_model=d_model, H=att_heads,
-                   dtype=dtype, device=device)
+                   dtype=dtype, device=device, use_flash=use_flash,
+                   dout_p=dout_p)
         self.bm_worker_fus = BMFusion(att_layers, **fus)
         self.bm_manager_fus = BMFusion(att_layers, **fus)
-        self.manager = Manager(d_model_caps, d_goal, device)
+        self.manager = Manager(d_model_caps, d_goal, device, dout_p)
         self.worker = Worker(voc_size, d_model_caps, d_goal, d_model, dtype,
-                             device)
+                             device, dout_p)
 
     @property
     def device(self) -> torch.device:
         return self.emb_C.embedding.weight.device
 
-    def encode(self, V, A, masks):
+    def encode(self, V, A, masks, draws: Optional[Draws] = None):
         """(B, Sv, d_video), (B, Sa, d_audio) features -> (Va, Av) memories
-        in the compute dtype."""
-        V = self.pos_enc_V(V.to(self.dtype))
-        A = self.pos_enc_A(A.to(self.dtype))
-        return self.bm_enc(V, A, masks["V_mask"], masks["A_mask"])
+        in the compute dtype. ``draws``: dropout draws (None: none)."""
+        V = self.pos_enc_V(V.to(self.dtype), draws)
+        A = self.pos_enc_A(A.to(self.dtype), draws)
+        return self.bm_enc(V, A, masks["V_mask"], masks["A_mask"], draws)
+
+    def segment_labels_of(self, C_emb: torch.Tensor) -> torch.Tensor:
+        """(B, L, Dc) caption embeddings -> (B, L) int32 segment labels of
+        the frozen critic."""
+        scores = torch.sigmoid(self.critic(C_emb))
+        return (scores > self.critic_score_threshold).to(torch.int32)[..., 0]
+
+    def predict_with_features(self, C_emb, Va, Av, masks,
+                              exploration: bool = False,
+                              deterministic: bool = True,
+                              draws: Optional[Draws] = None):
+        """Caption side of ``forward`` against encoder memories Va, Av.
+        Returns (log_probs, worker_feat, manager_feat, goals, labels)."""
+        drop = None if deterministic else draws
+        labels = self.segment_labels_of(C_emb)
+        C = self.pos_enc_C(C_emb, drop).to(self.dtype)
+        worker_feat = self.bm_worker_fus(C, Av, Va, masks, drop)
+        manager_feat = self.bm_manager_fus(C, Av, Va, masks, drop)
+        goals = self.manager(manager_feat, labels, exploration, drop, draws)
+        pred = self.worker(worker_feat, goals, masks["C_mask"], drop)
+        return pred, worker_feat, manager_feat, goals, labels
+
+    def forward(self, V, A, trg, masks, exploration: bool = False,
+                deterministic: bool = True, draws: Optional[Draws] = None):
+        """Teacher-forced forward: features V (B, Sv, d_video), A (B, Sa,
+        d_audio), caption tokens trg (B, L), masks from
+        ``ops.masking.make_masks(..., trg)``. With ``deterministic=False``
+        dropout is on and with ``exploration`` the Manager adds noise; both
+        draw from ``draws``. Returns (log_probs (B, L, V), worker_feat,
+        manager_feat, goals, segment labels (B, L))."""
+        if (exploration or not deterministic) and draws is None:
+            raise ValueError("a forward with dropout or exploration needs "
+                             "draws")
+        C_emb = self.emb_C(trg)
+        Va, Av = self.encode(V, A, masks, None if deterministic else draws)
+        return self.predict_with_features(C_emb, Va, Av, masks, exploration,
+                                          deterministic, draws)
 
     def init_decode_caches(self, B: int, L: int) -> Dict:
         """Per-row decode state: critic RNN state, per-stack per-layer
@@ -290,3 +398,30 @@ class BMHrlAgent(nn.Module):
         logits = self.worker.step_raw(wf_t, goal_t, goal_cache, t, key_mask,
                                       goal_fw)
         return logits, hb
+
+
+class _ValueFunction(nn.Module):
+    """Reward baseline: FFN(d, 2d) -> ReLU -> Linear(d -> 1), f32, under the
+    JAX module's parameter names (``value_function``, ``projection``). The
+    steps run it without dropout, as the JAX steps do, so it has none."""
+
+    def __init__(self, d_model_caps: int = 300, device="cuda"):
+        super().__init__()
+        if torch.device(device).type != "meta":
+            device = resolve_device(device)
+        d = d_model_caps
+        self.value_function = PositionwiseFeedForward(d, 2 * d, torch.float32,
+                                                      device)
+        self.projection = Dense(d, 1, torch.float32, device)
+
+    def forward(self, x):
+        return self.projection(torch.relu(self.value_function(x.float())))
+
+
+class BMWorkerValueFunction(_ValueFunction):
+    """Worker reward baseline on worker features (the JAX module also takes
+    the goals and ignores them)."""
+
+
+class BMManagerValueFunction(_ValueFunction):
+    """Manager reward baseline on manager features."""

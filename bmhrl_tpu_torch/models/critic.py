@@ -1,12 +1,16 @@
-"""Frozen SegmentCritic, decode surface: 4-layer LSTM(D -> 2D) -> AReLU ->
-2-layer GRU(2D) -> AReLU -> Linear(2D -> 1), stepped one token at a time
-(the port of ``init_state``/``step`` in bmhrl_tpu/models/critic.py).
+"""Frozen SegmentCritic: 4-layer LSTM(D -> 2D) -> AReLU -> 2-layer GRU(2D)
+-> AReLU -> Linear(2D -> 1) (the port of bmhrl_tpu/models/critic.py), over
+a whole caption (``forward``, the training path) or one token at a time
+(``init_state``/``step``, the decode).
 
 Parameters keep torch's RNN layout (w_ih (nG*H, in), gate order LSTM i,f,g,o
 and GRU r,z,n), which is also the JAX package's. Every cell runs through
 ``ops.critic_kernels`` (a fused kernel per cell on the card, over weights
-packed once per decode by ``step_weights``), f32 throughout.
-The full-sequence scan belongs to the training path and is not ported here.
+packed once per call by ``step_weights``), f32 throughout. The
+full-sequence pass is L cell steps per layer, where the JAX package scans
+(``lax.scan``) with ``x·W_ihᵀ + b_ih`` taken for all positions first and
+``h·W_hhᵀ + b_hh`` added per step; the cells sum both halves and the
+pre-summed biases at once, which agrees to ~1 ulp in f32.
 """
 from __future__ import annotations
 
@@ -42,6 +46,12 @@ class LSTMLayer(_RNNLayer):
         h, c = ck.lstm_cell_packed(xt, state[0], state[1], packed)
         return h, (h, c)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, K) -> (B, L, H) hidden states from a zero state."""
+        packed = self.step_weights()
+        z = x.new_zeros(x.shape[0], self.weight_hh.shape[1])
+        return _scan(lambda xt, st: self.step(xt, st, packed), x, (z, z))
+
 
 class GRULayer(_RNNLayer):
     def __init__(self, d_in: int, d_hidden: int, device=None):
@@ -55,9 +65,27 @@ class GRULayer(_RNNLayer):
         h = ck.gru_cell_packed(xt, h, packed)
         return h, h
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, K) -> (B, L, H) hidden states from a zero state."""
+        packed = self.step_weights()
+        z = x.new_zeros(x.shape[0], self.weight_hh.shape[1])
+        return _scan(lambda xt, st: self.step(xt, st, packed), x, z)
+
+
+def _scan(step, x: torch.Tensor, state) -> torch.Tensor:
+    """Run ``step(x_t, state) -> (h_t, state)`` over the positions of x
+    (B, L, K), f32; stack the h_t to (B, L, H)."""
+    xs = x.float().transpose(0, 1).contiguous()  # each x_t contiguous
+    hs = []
+    for xt in xs:
+        h, state = step(xt, state)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
 
 class SegmentCritic(nn.Module):
-    """Frozen segment-boundary detector (decode stepping only)."""
+    """Frozen segment-boundary detector. It never trains: ``forward`` runs
+    under ``torch.no_grad()`` and the optimizer masks its parameters."""
 
     def __init__(self, d_model_caps: int = 300, device=None):
         super().__init__()
@@ -71,6 +99,17 @@ class SegmentCritic(nn.Module):
         self.relu = AReLU(device=device)
         self.relu2 = AReLU(device=device)
         self.lin = Dense(H, 1, torch.float32, device)
+
+    @torch.no_grad()
+    def forward(self, embedded: torch.Tensor) -> torch.Tensor:
+        """(B, L, d_caps) scaled caption embeddings -> (B, L, 1) logits."""
+        h = embedded
+        for l in range(4):
+            h = getattr(self, f"lstm_l{l}")(h)
+        h = self.relu(h)
+        for l in range(2):
+            h = getattr(self, f"gru_l{l}")(h)
+        return self.lin(self.relu2(h))
 
     def init_state(self, B: int) -> Dict[str, List]:
         dev = self.lin.weight.device

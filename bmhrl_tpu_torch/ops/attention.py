@@ -1,11 +1,17 @@
-"""Attention kernels of the serving path: flash attention on un-headed
-projections (encoder) and folded attention against raw memories (decode).
+"""Attention kernels: flash attention on un-headed projections (encoder
+and the fusion layers' cross-attention) and folded attention against raw
+memories (decode).
 
 Each public function is a wrapper: for tensors on the CPU it runs the plain
 PyTorch version beside it (``*_plain``), for CUDA tensors it launches the
 hand-written kernel of ``csrc/`` or raises. The plain versions repeat the
 kernels' arithmetic, so the CPU tests hold them against the JAX package and
 ``chip_smoke.py`` holds the kernels against them on the card.
+
+Flash attention is differentiable through one ``torch.autograd.Function``
+on both devices: its forward is the kernel (or the plain version on the
+CPU), its backward the JAX package's recompute (``_flash_bsd_bwd``, XLA
+there, plain PyTorch here), which launches no kernel of ``csrc/``.
 """
 from __future__ import annotations
 
@@ -77,46 +83,112 @@ def flash_attention_bsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The inputs may be views with any batch and row strides (the model passes
     column slices of one merged QKV projection) but unit stride along the
-    last axis."""
-    if q.device.type == "cpu":
-        return flash_attention_bsd_plain(q, k, v, mask, H, causal)
-    what = "flash_attention_bsd"
-    _cuda.require_cuda(what, q, k, v)
+    last axis. The call goes through ``FlashAttentionBSD``; under
+    ``no_grad``, or when no input requires grad, autograd keeps nothing for
+    a backward."""
+    return FlashAttentionBSD.apply(q, k, v, mask, H, causal)
+
+
+def flash_attention_bsd_bwd(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mask: Optional[torch.Tensor],
+                            g: torch.Tensor, H: int, causal: bool = False):
+    """Gradients (dq, dk, dv) of ``flash_attention_bsd`` for the output
+    cotangent g: the JAX package's recompute (``_flash_bsd_bwd``) step by
+    step. Probabilities in f32 from the input-type q and k (the forward's
+    -1e9 fill, so a fully-masked row has uniform p, as in the forward);
+    p, g and ds enter their products rounded to the input type, sums in
+    f32; ds = p (dp - sum(dp p)); the scale applied to dq and dk. Plain
+    PyTorch on both devices."""
+    dt = q.dtype
     B, Sq, HD = q.shape
     Sk = k.shape[1]
-    if k.shape != (B, Sk, HD) or v.shape != (B, Sk, HD):
-        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} do not match")
-    if k.dtype != q.dtype or v.dtype != q.dtype or HD % H:
-        raise ValueError(f"{what}: q/k/v types {q.dtype}, {k.dtype}, "
-                         f"{v.dtype} or width {HD} over {H} heads")
     d = HD // H
-    route = flash_route(q.dtype, d)
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError(f"{what}: the last axis must have unit stride")
-    if route == "tc" and any(t.data_ptr() % 16 or t.stride(0) % 8
-                             or t.stride(1) % 8 for t in (q, k, v)):
-        raise ValueError(f"{what}: the tensor-core kernel copies 16-byte "
-                         "rows: q/k/v must be 16-byte aligned with batch "
-                         "and row strides that are multiples of 8")
-    if mask is None:
-        mask = torch.ones(B, Sk, dtype=torch.int32, device=q.device)
-    else:
-        if mask.shape != (B, Sk):
-            raise ValueError(f"{what}: mask {tuple(mask.shape)} != {(B, Sk)}")
-        _cuda.require_cuda(what, q, mask)
-        mask = mask.to(torch.int32).contiguous()
-    out = torch.empty(B, Sq, HD, dtype=q.dtype, device=q.device)
-    lib = _flash_lib()
-    fn = (lib.bmhrl_flash_attention_tc if route == "tc"
-          else lib.bmhrl_flash_attention_simt)
-    err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             mask.data_ptr(), out.data_ptr(), B, Sq, Sk, H, d,
-             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-             v.stride(1), 1.0 / math.sqrt(d), int(causal), _cuda.stream_of(q))
-    _cuda.check(lib, err, f"{what} ({route}, B={B}, Sq={Sq}, Sk={Sk}, d={d})")
-    _cuda.LAUNCHES[f"flash_attention_{route}"] += 1
-    return out
+
+    def heads(x):  # values of the input type, held in f32
+        return x.to(dt).reshape(B, x.shape[1], H, d).transpose(1, 2).float()
+
+    def unheads(x):
+        return x.transpose(1, 2).reshape(B, x.shape[2], HD).to(dt)
+
+    qh, kh, vh, gh = heads(q), heads(k), heads(v), heads(g)
+    s = (qh @ kh.transpose(-1, -2)) / math.sqrt(d)
+    if causal:
+        tri = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~tri, NEG_INF)
+    if mask is not None:
+        s = s.masked_fill(~(mask > 0)[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    dv = p.to(dt).float().transpose(-1, -2) @ gh
+    dp = gh @ vh.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dsm = ds.to(dt).float()
+    scale = 1.0 / math.sqrt(d)
+    dq = (dsm @ kh) * scale
+    dk = (dsm.transpose(-1, -2) @ qh) * scale
+    return unheads(dq), unheads(dk), unheads(dv)
+
+
+class FlashAttentionBSD(torch.autograd.Function):
+    """``flash_attention_bsd`` under autograd. Forward: the plain version for
+    CPU tensors, else one launch of the route's kernel. Backward:
+    ``flash_attention_bsd_bwd``, which launches no kernel. The gradients of
+    q, k and v are returned whole; where they are column views of one merged
+    projection, autograd sums them into its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, H, causal):
+        ctx.H, ctx.causal = H, causal
+        ctx.save_for_backward(q, k, v, mask)
+        if q.device.type == "cpu":
+            return flash_attention_bsd_plain(q, k, v, mask, H, causal)
+        what = "flash_attention_bsd"
+        _cuda.require_cuda(what, q, k, v)
+        B, Sq, HD = q.shape
+        Sk = k.shape[1]
+        if k.shape != (B, Sk, HD) or v.shape != (B, Sk, HD):
+            raise ValueError(f"{what}: q {tuple(q.shape)}, k "
+                             f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
+                             "match")
+        if k.dtype != q.dtype or v.dtype != q.dtype or HD % H:
+            raise ValueError(f"{what}: q/k/v types {q.dtype}, {k.dtype}, "
+                             f"{v.dtype} or width {HD} over {H} heads")
+        d = HD // H
+        route = flash_route(q.dtype, d)
+        if any(t.stride(-1) != 1 for t in (q, k, v)):
+            raise ValueError(f"{what}: the last axis must have unit stride")
+        if route == "tc" and any(t.data_ptr() % 16 or t.stride(0) % 8
+                                 or t.stride(1) % 8 for t in (q, k, v)):
+            raise ValueError(f"{what}: the tensor-core kernel copies 16-byte "
+                             "rows: q/k/v must be 16-byte aligned with batch "
+                             "and row strides that are multiples of 8")
+        if mask is None:
+            mask = torch.ones(B, Sk, dtype=torch.int32, device=q.device)
+        else:
+            if mask.shape != (B, Sk):
+                raise ValueError(f"{what}: mask {tuple(mask.shape)} != "
+                                 f"{(B, Sk)}")
+            _cuda.require_cuda(what, q, mask)
+            mask = mask.to(torch.int32).contiguous()
+        out = torch.empty(B, Sq, HD, dtype=q.dtype, device=q.device)
+        lib = _flash_lib()
+        fn = (lib.bmhrl_flash_attention_tc if route == "tc"
+              else lib.bmhrl_flash_attention_simt)
+        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), mask.data_ptr(), out.data_ptr(), B, Sq, Sk, H,
+                 d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                 v.stride(0), v.stride(1), 1.0 / math.sqrt(d), int(causal),
+                 _cuda.stream_of(q))
+        _cuda.check(lib, err,
+                    f"{what} ({route}, B={B}, Sq={Sq}, Sk={Sk}, d={d})")
+        _cuda.LAUNCHES[f"flash_attention_{route}"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bsd_bwd(q, k, v, mask, g, ctx.H,
+                                             ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 # streaming multiprocessors of one H100 SXM: folded_split aims to give each

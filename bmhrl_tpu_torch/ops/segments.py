@@ -1,11 +1,23 @@
-"""Goal expansion at the decode frontier (the port's copy of the parts of
-bmhrl_tpu/ops/segments.py that greedy serving runs).
+"""Segment and goal operations (the port's copy of
+bmhrl_tpu/ops/segments.py): goal expansion over a whole caption (training)
+and at the decode frontier (serving), and per-segment sums.
 
-Both functions reproduce the reference loop's cross-row finalisation
-quirks, so a row's goal depends on the other rows of its batch."""
+``segment_mask`` is (B, L) {0, 1}; a 1 at position j marks the END of a
+segment covering (previous boundary, j]. The goal expansions reproduce the
+reference loop's cross-row finalisation quirks, so a row's goals depend on
+the other rows of its batch."""
 from __future__ import annotations
 
 import torch
+
+
+def next_boundary(segment_mask: torch.Tensor) -> torch.Tensor:
+    """Index of the nearest boundary at or after each position; L if none.
+    (B, L) int/bool -> (B, L) int64."""
+    L = segment_mask.shape[1]
+    pos = torch.arange(L, device=segment_mask.device).expand_as(segment_mask)
+    idx = torch.where(segment_mask.bool(), pos, torch.full_like(pos, L))
+    return idx.flip(1).cummin(1).values.flip(1)
 
 
 def _later_rows_have(has_boundary: torch.Tensor) -> torch.Tensor:
@@ -13,6 +25,46 @@ def _later_rows_have(has_boundary: torch.Tensor) -> torch.Tensor:
     hb = has_boundary.to(torch.int32)
     suffix = hb.flip(0).cumsum(0).flip(0)  # inclusive suffix count
     return (suffix - hb) > 0
+
+
+def expand_goals(x: torch.Tensor, segment_mask: torch.Tensor) -> torch.Tensor:
+    """Broadcast each boundary's goal back over its segment, with the
+    reference loop's finalisation (bmhrl_tpu/ops/segments.py
+    ``expand_goals``). For a row b:
+
+    - a boundary at j gives positions (previous boundary, j] x[b, j];
+    - positions after the row's LAST boundary are zeroed only when a LATER
+      row also has a boundary; the last row with a boundary keeps its raw
+      tail;
+    - a row with no boundary keeps raw x, EXCEPT row 0, which is zeroed
+      whenever any row has a boundary;
+    - an all-zero mask returns x unchanged.
+
+    x: (B, L, D); segment_mask: (B, L) -> (B, L, D)."""
+    B, L, D = x.shape
+    m = segment_mask.bool()
+    nb = next_boundary(m)
+    gathered = torch.gather(x, 1, nb.clamp_max(L - 1)[:, :, None]
+                            .expand(B, L, D))
+    hb = m.any(dim=1)
+    later = _later_rows_have(hb)
+    zeros = torch.zeros_like(x)
+    tail_val = torch.where(later[:, None, None], zeros, x)
+    boundary_rows = torch.where((nb >= L)[:, :, None], tail_val, gathered)
+    row0_zeroed = ((~hb) & (torch.arange(B, device=x.device) == 0)
+                   & hb.any())
+    no_boundary_rows = torch.where(row0_zeroed[:, None, None], zeros, x)
+    return torch.where(hb[:, None, None], boundary_rows, no_boundary_rows)
+
+
+def segment_sum_expand(reward: torch.Tensor,
+                       segment_mask: torch.Tensor) -> torch.Tensor:
+    """Sum the step values within each segment and write the sum over the
+    segment; positions after the last boundary get 0. (B, L) -> (B, L)."""
+    L = reward.shape[1]
+    nb = next_boundary(segment_mask)
+    same = (nb[:, :, None] == nb[:, None, :]) & (nb[:, :, None] < L)
+    return torch.einsum("bik,bk->bi", same.to(reward.dtype), reward)
 
 
 def frontier_goal(x_t: torch.Tensor, label_t: torch.Tensor,

@@ -1,5 +1,6 @@
 """Weights in the JAX package's layout: load a flax variable tree into the
-port, or make a random one from a numpy seed.
+port (the agent or a value function), or make a random one from a numpy
+seed.
 
 The port's module and parameter names follow the flax param tree, so the map
 is by rule: a path ``a/b/c/leaf`` of the tree is the parameter ``a.b.c.X``,
@@ -74,16 +75,22 @@ def load_jax_params(model: nn.Module, tree: Dict) -> nn.Module:
 def random_jax_layout_params(dims: Dict, seed: int = 0) -> Dict:
     """A random flax-layout tree ``{"params": ...}`` of numpy f32 arrays with
     the keys and shapes that ``BMHrlAgent(**dims).init`` gives in the JAX
-    package. Scales follow the flax initialisers (lecun-normal kernels,
-    unit-normal embedding, torch-RNN uniform critic weights, AReLU and gate
-    constants at their init values); biases and LayerNorm parameters get
-    small random values so that a loader that drops them shows."""
+    package (``random_module_params`` of the agent's shapes)."""
     from bmhrl_tpu_torch.models.bmhrl import BMHrlAgent
 
+    return random_module_params(BMHrlAgent(**dims, device="meta"), seed)
+
+
+def random_module_params(model: nn.Module, seed: int = 0) -> Dict:
+    """A random flax-layout tree for ``model`` (its parameters give the
+    keys and shapes; a model on the "meta" device is enough). Scales follow
+    the flax initialisers (lecun-normal kernels, unit-normal embedding,
+    torch-RNN uniform critic weights, AReLU and gate constants at their
+    init values); biases and LayerNorm parameters get small random values
+    so that a loader that drops them shows."""
     rng = np.random.RandomState(seed)
-    shapes = BMHrlAgent(**dims, device="meta")
     tree: Dict = {}
-    for path, p, transposed in _flax_paths(shapes):
+    for path, p, transposed in _flax_paths(model):
         shape = tuple(p.shape)[::-1] if transposed else tuple(p.shape)
         leaf = path[-1]
         if leaf == "kernel":

@@ -33,8 +33,31 @@ Phases, each of which raises at its first failure:
    zeroed just before it and read just after, and every kernel of the bf16
    path must have launched. Then clips/s of greedy decode at B=32 and
    B=256 (Sv=128, Sa=256, 30 tokens), the per-step token agreement of the
-   kernels and the plain versions fed the same tokens, and a profile of one
-   B=256 decode.
+   kernels and the plain versions fed the same tokens;
+5. train: the training path through ``train.steps.StepFactory``. Flash
+   attention's gradient (the autograd Function: kernel forward, the JAX
+   package's recompute as backward) against autograd through the plain
+   version at the training shapes, bf16 (tensor-core route) and f32
+   (CUDA-core route); a small f32 model trained on the card and on the CPU
+   with the same draws (two warmstart steps, one RL update per phase):
+   losses and updated parameters agree; then the flagship (Config's dims,
+   vocabulary 10172, bf16, random weights from seed 0) on synthetic
+   batches shaped as bench.py's (Sv=128, Sa=256, 31 caption positions).
+   This is the training path's main run: the launch counts are zeroed just
+   before it and read just after (ten warmstart steps on one batch, a value
+   step, an RL worker and an RL manager step); the flash kernel must launch
+   16 times per forward and the critic's cells 6 per caption position.
+   Checks: the loss falls, every encoder parameter gets a nonzero gradient,
+   the critic never changes, each RL phase leaves the other phase's group
+   unchanged. Then ms/step (median of 7 after 3 warm-up steps) of warmstart at
+   B=16 and B=64 and of RL worker and manager (rollout + update, zero
+   scores) at B=16, an MFU estimate (forward matmul FLOPs counted with the
+   plain kernels, times 3, against 989 TFLOP/s bf16), the step's
+   forward/backward/optimizer split from CUDA events, and the flash
+   forward kernel, backward recompute and
+   ``scaled_dot_product_attention`` forward + backward at the B=16 sites;
+6. profile: one B=256 greedy decode and one B=16 warmstart step under
+   ``torch.profiler`` (last: a profiled process launches more slowly).
 
 Prints the card's name and power limit first, one JSON line per measurement,
 a ``kernels`` line, and last the line
@@ -757,9 +780,7 @@ def phase_serve(K):
           "free_running_token_agreement": free})
     if forced < 0.95:
         raise AssertionError(f"token agreement {forced} < 0.95")
-    # the profiler runs last: once it has traced, the host launches more
-    # slowly
-    profile_decode(model)
+    return model
 
 
 def forced_agreement(model, feats, masks, tokens):
@@ -797,6 +818,31 @@ def forced_agreement(model, feats, masks, tokens):
     return float(torch.stack(same).float().mean()), regret
 
 
+def device_groups(prof):
+    """Device ms and launches of a profile by group: each kernel of csrc/,
+    cuBLAS/CUTLASS GEMMs, everything else."""
+    import torch
+
+    kernels = ("flash_tc_kernel", "flash_simt_kernel", "folded_tc_kernel",
+               "folded_kernel", "lstm_cell_kernel", "gru_cell_kernel")
+    groups = dict.fromkeys(kernels + ("gemm", "other"), 0.0)
+    counts = dict.fromkeys(groups, 0)
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        name = evt.key.lower()
+        key = next((g for g in kernels if g in name), None)
+        if key is None:
+            key = "gemm" if ("gemm" in name or "sm90" in name
+                             or "cutlass" in name) else "other"
+        groups[key] += us / 1e3
+        counts[key] += evt.count
+    return groups, counts
+
+
 def profile_decode(model, B=256):
     """Device time of one greedy decode (B=256, Sv=128, Sa=256, 30 tokens)
     by kernel group, and the device's busy share of the wall time."""
@@ -817,23 +863,7 @@ def profile_decode(model, B=256):
         decode(model, feats, masks, 30, BOS, -1, PAD)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = ("flash_tc_kernel", "flash_simt_kernel", "folded_tc_kernel",
-               "folded_kernel", "lstm_cell_kernel", "gru_cell_kernel")
-    groups = dict.fromkeys(kernels + ("gemm", "other"), 0.0)
-    counts = dict.fromkeys(groups, 0)
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "device_time_total", None)
-        if us is None:
-            us = evt.cuda_time_total
-        name = evt.key.lower()
-        key = next((g for g in kernels if g in name), None)
-        if key is None:
-            key = "gemm" if ("gemm" in name or "sm90" in name
-                             or "cutlass" in name) else "other"
-        groups[key] += us / 1e3
-        counts[key] += evt.count
+    groups, counts = device_groups(prof)
     busy = sum(groups.values())
     # the bf16 decode takes the tensor-core folded route: one launch per
     # branch, layer and token
@@ -842,6 +872,521 @@ def profile_decode(model, B=256):
                  or counts["folded_kernel"]):
         raise AssertionError(f"folded launches in a decode: {counts}")
     emit({"phase": "profile", "B": B, "Sv": 128, "Sa": 256, "tokens": 30,
+          "wall_ms": wall_ms, "device_ms": groups, "device_busy_ms": busy,
+          "device_idle_share": (1 - busy / wall_ms) if busy else None,
+          "device_launches": sum(counts.values()),
+          "device_launches_by_group": counts,
+          "note": None if busy else "not measured: no device time traced"})
+
+
+# --------------------------------------------------------------------------
+def make_train_batch(B, Sv=128, Sa=256, Lc=31, voc=VOC, d_v=1024, d_a=128,
+                     device="cuda", seed=0):
+    """A synthetic training batch shaped as bench.py's: random features,
+    captions of <s>, 19 random words, </s> and pads (Lc + 1 ids)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    cap = np.full((B, Lc + 1), 1, np.int64)
+    cap[:, 0] = 2
+    n = min(19, Lc - 2)
+    cap[:, 1:1 + n] = rng.randint(4, voc, (B, n))
+    cap[:, 1 + n] = 3
+    f = {"rgb": rng.rand(B, Sv, d_v), "flow": rng.rand(B, Sv, d_v),
+         "audio": rng.rand(B, Sa, d_a)}
+    batch = {k: torch.tensor(v, dtype=torch.float32, device=device)
+             for k, v in f.items()}
+    batch["caption_idx"] = torch.tensor(cap, device=device)
+    return batch
+
+
+def build_trainer(kwargs, device, seed=0):
+    """A StepFactory over ``build_model(kwargs, device, seed)`` and two
+    value functions with random weights from the next seeds, and its
+    initial state."""
+    import torch
+
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.models.bmhrl import (BMManagerValueFunction,
+                                              BMWorkerValueFunction)
+    from bmhrl_tpu_torch.train.steps import StepFactory
+    from bmhrl_tpu_torch.weights import load_jax_params, random_module_params
+
+    model = build_model(kwargs, device, seed)
+    nets = []
+    for i, cls in enumerate((BMWorkerValueFunction, BMManagerValueFunction)):
+        net = cls(kwargs["d_model_caps"], device=device)
+        nets.append(load_jax_params(net, random_module_params(net,
+                                                              seed + 1 + i)))
+    sf = StepFactory(Config(), model, *nets, emb_trainable=True)
+    torch.cuda.synchronize()
+    return sf, sf.init_state()
+
+
+def flash_grad_checks(K):
+    """The autograd Function (kernel forward, recompute backward) against
+    autograd through the plain version at the training shapes: bf16 at
+    B=16, 4 heads of d=256 (tensor-core route; Sq 31 against Sk 128 and
+    256, Sq = Sk 128, 256, 300, 800) and f32 at the reference decode's
+    B=8, 2 heads of d=128 (CUDA-core route). As in the model, q, k and v
+    are column views of one merged projection where Sq = Sk (self
+    attention), and k and v of one merged K/V projection otherwise; the
+    gradients compared are those of the merged leaves. Row 1 is fully
+    masked. The forwards must agree within the serving check's absolute
+    tolerance, the masked row equal mean(V). The JAX recompute gives that
+    row's q and k a gradient (uniform p, ds = p (dp - mean dp)) where
+    autograd through the -1e9 fill gives zero, so its dq and dk are left
+    out of the comparison; its dv (mean of g over the row's queries, as
+    the forward's mean(V)) is in it."""
+    import torch
+
+    from bmhrl_tpu_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    rec = {"tc": K["flash_tc"], "simt": K["flash_simt"]}
+    cases = [(torch.bfloat16, 16, 4, 256, sq, sk) for sq, sk in (
+        (31, 128), (31, 256), (128, 128), (256, 256), (300, 300),
+        (800, 800))]
+    cases += [(torch.float32, 8, 2, 128, sq, sk) for sq, sk in (
+        (31, 128), (31, 160), (128, 128), (160, 160), (128, 160))]
+    for dtype, B, H, d, Sq, Sk in cases:
+        HD = H * d
+
+        def merged(S, scales):
+            x = torch.randn(B, S, len(scales) * HD, generator=g, device=dev)
+            col = torch.tensor(scales, device=dev).repeat_interleave(HD)
+            return (x * col).to(dtype)
+
+        self_att = Sq == Sk
+        if self_att:  # one merged Q/K/V projection
+            leaves = [merged(Sq, (0.3, 1.0, 1.0))]
+        else:  # q alone, one merged K/V projection
+            leaves = [merged(Sq, (0.3,)), merged(Sk, (1.0, 1.0))]
+
+        def qkv(ts):
+            if self_att:
+                return ts[0].split(HD, dim=-1)
+            return (ts[0], *ts[1].split(HD, dim=-1))
+
+        go = merged(Sq, (1.0,))
+        lens = torch.randint(Sk // 2, Sk + 1, (B,), generator=g, device=dev)
+        mask = torch.arange(Sk, device=dev)[None] < lens[:, None]
+        mask[1] = False
+        route = att.flash_route(dtype, d)
+        outs, grads, fns = [], [], []
+        for fn in (att.flash_attention_bsd, att.flash_attention_bsd_plain):
+            ins = [t.clone().requires_grad_() for t in leaves]
+            out = fn(*qkv(ins), mask, H)
+            fns.append(type(out.grad_fn).__name__)
+            outs.append(out.detach())
+            grads.append(dict(zip("qkv", qkv(
+                torch.autograd.grad(out, ins, go)))))
+        if fns[0] != "FlashAttentionBSDBackward":
+            raise AssertionError(f"flash attention under autograd took "
+                                 f"{fns[0]}, not the Function")
+        tag = f"{route} {Sq}x{Sk}"
+        fwd_err = check_close(f"flash train forward {tag}", *outs,
+                              TOL[dtype])
+        mean_v = qkv(leaves)[2][1].float().mean(0).expand_as(outs[0][1])
+        fwd_err = max(fwd_err, check_close(
+            f"flash train forward {tag} masked row = mean(V)", outs[0][1],
+            mean_v, TOL[dtype]))
+        rec[route].err(fwd_err)
+        r = rec[route].rec
+        r["train_fwd_max_abs_err"] = max(r.get("train_fwd_max_abs_err", 0.0),
+                                         fwd_err)
+        keep = torch.ones(B, dtype=torch.bool, device=dev)
+        keep[1] = False
+        errs = {}
+        for name in "qkv":
+            a, b = grads[0][name], grads[1][name]
+            if name != "v":
+                a, b = a[keep], b[keep]
+            scale = float(b.float().abs().max())
+            tol = REL[dtype] * scale
+            errs[name] = check_close(f"flash grad d{name} {tag}", a, b,
+                                     tol) / scale
+        emit({"check": "flash_grad", "route": route, "dtype": str(dtype),
+              "B": B, "H": H, "d": d, "Sq": Sq, "Sk": Sk,
+              "inputs": "merged QKV views" if self_att
+              else "q + merged KV views",
+              "fwd_max_abs_err": fwd_err, "fwd_tol": TOL[dtype],
+              "rel_err_of_max_abs": errs, "tol": REL[dtype],
+              "masked_row_dq_norm": float(grads[0]["q"][1].float().norm())})
+
+
+def train_card_vs_cpu():
+    """A small f32 model (2 heads of d=128: the CUDA-core flash route)
+    trained on the card and on the CPU with the same draws (generators on
+    the host): two warmstart steps, one RL rollout + update per phase.
+    Losses within 1e-4 relative, every parameter within 1e-5."""
+    import torch
+
+    from bmhrl_tpu_torch.models.blocks import Draws
+
+    class HostDraws(Draws):
+        """Draws from generators on the CPU, each copied to ``device``, so
+        the card's run takes the CPU run's draws."""
+
+        def __init__(self, seed, device):
+            super().__init__(seed, "cpu")
+            self.target = torch.device(device)
+
+        def _draw(self, fn, stream, *args):
+            return super()._draw(fn, stream, *args).to(self.target)
+
+    out = {}
+    score = torch.from_numpy(np.random.RandomState(5).rand(4, 8)
+                             .astype(np.float32))
+    for device in ("cuda", "cpu"):
+        sf, state = build_trainer(dict(SMALL, dtype=torch.float32), device,
+                                  seed=3)
+        batch = make_train_batch(4, 128, 160, Lc=8, voc=SMALL["voc_size"],
+                                 d_v=128, d_a=128, device=device, seed=3)
+        losses = []
+        for s in range(2):
+            state, m, _ = sf.warmstart_step(state, batch, s, 1e-4,
+                                            draws=HostDraws(s, device))
+            losses.append(m["loss"].item())
+        for tw in (True, False):
+            roll = sf.rl_rollout(state, batch, 0, tw,
+                                 draws=HostDraws(10 + tw, device))
+            state, m = sf.rl_update(state, batch, 0, 1e-4, roll,
+                                    score.to(device), tw,
+                                    draws=HostDraws(10 + tw, device))
+            losses += [m["loss"].item(), m["value_loss"].item()]
+        params = {f"{tag}.{n}": p.detach().cpu() for tag, mod in (
+            ("cap", sf.model), ("wv", sf.wv_model), ("mv", sf.mv_model))
+            for n, p in mod.named_parameters()}
+        out[device] = (np.array(losses), params)
+    (lc, pc), (lh, ph) = out["cuda"], out["cpu"]
+    loss_err = float(np.max(np.abs(lc - lh) / np.abs(lh)))
+    param_err = max(float((pc[n] - ph[n]).abs().max()) for n in ph)
+    emit({"check": "train_card_vs_cpu", "dims": "small", "dtype": "f32",
+          "losses_cuda": lc.tolist(), "losses_cpu": lh.tolist(),
+          "loss_rel_err": loss_err, "loss_tol": 1e-4,
+          "param_max_abs_err": param_err, "param_tol": 1e-5})
+    if not loss_err <= 1e-4 or not param_err <= 1e-5:
+        raise AssertionError("training on the card disagrees with the CPU")
+
+
+def step_ms(fn, n=7, warmup=3):
+    """Median wall ms of fn() (each ended by a device sync) over n calls
+    after ``warmup`` calls, and the samples."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(samples), samples
+
+
+def forward_flops(model, batch):
+    """Matmul FLOPs of one deterministic teacher-forced forward, counted by
+    ``torch.utils.flop_counter`` over the plain versions of the kernels:
+    (all, the frozen critic's share)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from bmhrl_tpu_torch.ops.masking import make_masks
+
+    x_idx = batch["caption_idx"][:, :-1]
+    masks = make_masks(batch, x_idx)
+    critic = []
+    with torch.no_grad(), plain_kernels(), \
+            FlopCounterMode(display=False) as counter:
+        hooks = [model.critic.register_forward_pre_hook(
+                     lambda *a: critic.append(-counter.get_total_flops())),
+                 model.critic.register_forward_hook(
+                     lambda *a: critic.append(counter.get_total_flops()))]
+        try:
+            model(batch["rgb"] + batch["flow"], batch["audio"], x_idx, masks)
+        finally:
+            for h in hooks:
+                h.remove()
+    return counter.get_total_flops(), sum(critic)
+
+
+def step_split(sf, state, batch):
+    """Device-timeline ms of one warmstart step's forward, backward
+    (``steps._grads`` of the captioner) and optimizer update, from CUDA
+    events, and of the whole step."""
+    import torch
+
+    from bmhrl_tpu_torch.train import steps
+
+    ev = {k: torch.cuda.Event(enable_timing=True) for k in (
+        "start", "fwd0", "fwd1", "bwd0", "bwd1", "opt0", "opt1", "end")}
+    grads, update = steps._grads, sf.cap_optim.update
+
+    def timed(a, b, fn):
+        def run(*args, **kw):
+            ev[a].record()
+            out = fn(*args, **kw)
+            ev[b].record()
+            return out
+        return run
+
+    hooks = [sf.model.register_forward_pre_hook(
+                 lambda *a: ev["fwd0"].record()),
+             sf.model.register_forward_hook(lambda *a: ev["fwd1"].record())]
+    try:
+        with mock.patch.object(steps, "_grads",
+                               timed("bwd0", "bwd1", grads)), \
+                mock.patch.object(sf.cap_optim, "update",
+                                  timed("opt0", "opt1", update)):
+            ev["start"].record()
+            state, _, _ = sf.warmstart_step(state, batch, 99, 1e-4)
+            ev["end"].record()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return state, {"forward_ms": ev["fwd0"].elapsed_time(ev["fwd1"]),
+                   "backward_ms": ev["bwd0"].elapsed_time(ev["bwd1"]),
+                   "optimizer_ms": ev["opt0"].elapsed_time(ev["opt1"]),
+                   "step_ms": ev["start"].elapsed_time(ev["end"])}
+
+
+def flash_train_times(K, B=16, Sv=128, Sa=256, Lc=31, layers=2):
+    """The flash sites of one warmstart step at B=16 (4 heads of d=256,
+    bf16): per forward, each encoder layer's four (Sq, Sk in Sv, Sa) and
+    each fusion layer's two (31 caption queries against Sa and Sv) in both
+    stacks. Kernel forward and backward recompute as device time of CUDA
+    graph replays; the port's forward + backward and
+    ``scaled_dot_product_attention``'s forward + backward as eager calls
+    (autograd), both ways the same. Sums over one step go on the
+    tensor-core flash record."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from bmhrl_tpu_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    H, d = 4, 256
+    HD = H * d
+    sites = [("enc V<-V", Sv, Sv, layers), ("enc A<-A", Sa, Sa, layers),
+             ("enc V<-A", Sv, Sa, layers), ("enc A<-V", Sa, Sv, layers),
+             ("fus C<-A", Lc, Sa, 2 * layers), ("fus C<-V", Lc, Sv,
+                                                2 * layers)]
+    total = dict(fwd_ms=0.0, bwd_recompute_ms=0.0, fwd_bwd_eager_ms=0.0,
+                 sdpa_fwd_bwd_eager_ms=0.0, plain_fwd_ms=0.0, bound_ms=0.0)
+    for site, Sq, Sk, per_step in sites:
+        def rnd(S, scale=1.0):
+            return (torch.randn(B, S, HD, generator=g, device=dev)
+                    * scale).to(torch.bfloat16)
+        q, k, v, go = rnd(Sq, 0.3), rnd(Sk), rnd(Sk), rnd(Sq)
+        lens = torch.randint(Sk // 2, Sk + 1, (B,), generator=g, device=dev)
+        mask = torch.arange(Sk, device=dev)[None] < lens[:, None]
+        fwd = time_ms(lambda: att.flash_attention_bsd(q, k, v, mask, H))
+        bwd = time_ms(lambda: att.flash_attention_bsd_bwd(q, k, v, mask, go,
+                                                          H))
+        plain = time_ms(lambda: att.flash_attention_bsd_plain(q, k, v, mask,
+                                                              H))
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def port_fb():
+            out = att.flash_attention_bsd(qg, kg, vg, mask, H)
+            return torch.autograd.grad(out, (qg, kg, vg), go)
+
+        qh, kh, vh = (t.view(B, -1, H, d).transpose(1, 2).detach()
+                      .requires_grad_() for t in (q, k, v))
+        goh = go.view(B, Sq, H, d).transpose(1, 2)
+        m4 = mask[:, None, None, :]
+
+        def sdpa_fb():
+            out = Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4)
+            return torch.autograd.grad(out, (qh, kh, vh), goh)
+
+        fb = eager_ms(port_fb, iters=10)
+        lfb = eager_ms(sdpa_fb, iters=10)
+        # bound of forward + backward: q, k, v, g, mask read and o, dq, dk,
+        # dv written once; 4 (forward) + 8 (backward) B H Sq Sk d
+        # operations of bf16 products
+        nbytes = (3 * B * Sq * HD + 3 * B * Sk * HD) * 2 + B * Sk * 4
+        bms, by = bound_ms(nbytes, 12.0 * B * H * Sq * Sk * d, "bf16")
+        emit({"kernel": "flash_attention_tc", "case": f"train {site}",
+              "B": B, "Sq": Sq, "Sk": Sk, "per_step": per_step,
+              "fwd_ms": fwd, "bwd_recompute_ms": bwd, "plain_fwd_ms": plain,
+              "fwd_bwd_eager_ms": fb, "sdpa_fwd_bwd_eager_ms": lfb,
+              "fwd_bwd_bound_ms": bms, "bound_by": by})
+        for key, val in (("fwd_ms", fwd), ("bwd_recompute_ms", bwd),
+                         ("fwd_bwd_eager_ms", fb),
+                         ("sdpa_fwd_bwd_eager_ms", lfb),
+                         ("plain_fwd_ms", plain), ("bound_ms", bms)):
+            total[key] += per_step * val
+    emit({"kernel": "flash_attention_tc", "case": "train: sum of one "
+          "warmstart step's sites", "B": B, **total})
+    K["flash_tc"].rec["train_step_B16"] = total
+
+
+def phase_train(K):
+    """Flash gradients, card vs CPU, then the flagship's training path (its
+    main run counted), checks and timings. Returns (StepFactory, state,
+    B=16 batch) for the profile phase."""
+    import torch
+
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.models.blocks import Draws
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.train import losses as L
+
+    flash_grad_checks(K)
+    train_card_vs_cpu()
+    cfg = Config()
+    t0 = time.perf_counter()
+    sf, state = build_trainer(cfg.agent_kwargs(VOC), "cuda")
+    model = sf.model
+    emit({"phase": "train", "model_build_s": time.perf_counter() - t0,
+          "params": sum(p.numel() for p in model.parameters())})
+    b16 = make_train_batch(16, seed=1)
+    Lc = b16["caption_idx"].shape[1] - 1
+
+    # every encoder parameter gets a nonzero gradient through a training
+    # forward (the step's own computation, with its draws)
+    x_idx = b16["caption_idx"][:, :-1]
+    pred = model(b16["rgb"] + b16["flow"], b16["audio"], x_idx,
+                 make_masks(b16, x_idx), exploration=True,
+                 deterministic=False, draws=Draws(0, "cuda"))[0]
+    loss = L.label_smoothing(pred, b16["caption_idx"][:, 1:], cfg.smoothing,
+                             1).sum()
+    enc = {n: p for n, p in model.named_parameters()
+           if n.startswith("bm_enc")}
+    gmax = {n: float(gr.abs().max()) for n, gr in zip(
+        enc, torch.autograd.grad(loss, list(enc.values())))}
+    zero = [n for n, m in gmax.items() if not m > 0]
+    emit({"check": "encoder_gradients", "params": len(gmax),
+          "zero_or_nonfinite": zero, "min_max_abs": min(gmax.values())})
+    if zero:
+        raise AssertionError(f"encoder parameters without gradient: {zero}")
+    del pred, loss
+
+    # ---- the training path's main run, counted
+    groups = sf.groups
+
+    def snapshot(group):
+        return {n: p.detach().clone() for n, p in sf.cap_params.items()
+                if groups[n] == group}
+
+    def unchanged(snap):
+        return all(torch.equal(sf.cap_params[n], p) for n, p in snap.items())
+
+    critic0 = snapshot("frozen")
+    zeros = torch.zeros(16, Lc, device="cuda")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    losses = []
+    for i in range(10):
+        state, m, aux = sf.warmstart_step(state, b16, i,
+                                          cfg.rl_cap_warmstart_lr)
+        losses.append(m["loss"])
+    state, vm = sf.value_warmstart_step(state, aux["wf"], aux["mf"], zeros,
+                                        zeros, aux["token_mask"], aux["seg"])
+    moved = {}
+    for tw, other in ((True, "manager"), (False, "worker")):
+        snap = snapshot(other)
+        own = snapshot("worker" if tw else "manager")
+        roll = sf.rl_rollout(state, b16, 100 + tw, tw)
+        state, rm = sf.rl_update(state, b16, 100 + tw, cfg.rl_cap_lr, roll,
+                                 zeros, tw)
+        torch.cuda.synchronize()
+        if not unchanged(snap):
+            raise AssertionError(f"an RL {'worker' if tw else 'manager'} "
+                                 f"update changed the {other} group")
+        moved["worker" if tw else "manager"] = not unchanged(own)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    losses = [x.item() for x in losses]
+    forwards = 10 + 2 * 2  # warmstart steps, then rollout + update twice
+    # flash sites of one forward: each encoder layer's 4 attentions and
+    # each fusion layer's 2 cross-attentions in both stacks (the caption
+    # self-attention and the goal attention take the plain path)
+    flash_per_fwd = (4 + 2 * 2) * model.att_layers
+    emit({"phase": "train", "main_run": "10 warmstart + value + RL worker "
+          "+ RL manager, B=16", "losses": losses,
+          "value_losses": [vm["wv_loss"].item(), vm["mv_loss"].item()],
+          "rl_loss_last": rm["loss"].item(), "launches": launches,
+          "forwards": forwards, "flash_tc_per_forward_expected":
+          flash_per_fwd, "own_group_moved": moved})
+    if not all(math.isfinite(x) for x in losses) or not \
+            losses[-1] < losses[0]:
+        raise AssertionError(f"warmstart loss did not fall: {losses}")
+    if not unchanged(critic0):
+        raise AssertionError("training changed the frozen critic")
+    if not all(moved.values()):
+        raise AssertionError(f"an RL phase left its own group: {moved}")
+    want = {"flash_attention_tc": flash_per_fwd * forwards,
+            "lstm_cell": 4 * Lc * forwards, "gru_cell": 2 * Lc * forwards,
+            "flash_attention_simt": 0, "folded_attend_tc": 0,
+            "folded_attend_simt": 0}
+    if launches != want:
+        raise AssertionError(f"training launches {launches} != {want}")
+    for name, n in launches.items():
+        K[name].rec["launches_train"] = n
+
+    # ---- timings
+    out = {}
+    b64 = make_train_batch(64, seed=2)
+    for B, batch in ((16, b16), (64, b64)):
+        def ws():
+            nonlocal state
+            state, _, _ = sf.warmstart_step(state, batch, 7,
+                                            cfg.rl_cap_warmstart_lr)
+        out[f"warmstart_B{B}"] = step_ms(ws)
+    del b64
+    for name, tw in (("rl_worker_B16", True), ("rl_manager_B16", False)):
+        def rl():
+            nonlocal state
+            roll = sf.rl_rollout(state, b16, 7, tw)
+            state, _ = sf.rl_update(state, b16, 7, cfg.rl_cap_lr, roll,
+                                    zeros, tw)
+        out[name] = step_ms(rl)
+    # forward matmuls x 3 (forward and backward), but the frozen critic's
+    # once: it runs under no_grad and has no backward
+    fwd_flops, critic_flops = forward_flops(model, b16)
+    flops16 = 3 * (fwd_flops - critic_flops) + critic_flops
+    state, split = step_split(sf, state, b16)
+    ms16 = out["warmstart_B16"][0]
+    emit({"phase": "train", "ms_per_step": {k: v[0] for k, v in out.items()},
+          "samples": {k: v[1] for k, v in out.items()},
+          "clips_per_s": {k: int(k.split("_B")[1]) * 1e3 / v[0]
+                          for k, v in out.items()},
+          "warmstart_B16_flops": flops16,
+          "forward_flops": fwd_flops, "critic_forward_flops": critic_flops,
+          "warmstart_B16_mfu": flops16 / (ms16 / 1e3) / PEAK_OPS["bf16"],
+          "warmstart_B16_split": split})
+    torch.cuda.empty_cache()
+    flash_train_times(K)
+    return sf, state, b16
+
+
+def profile_train(sf, state, batch):
+    """Device time of one B=16 warmstart step by kernel group, and the
+    device's busy share of the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sf.warmstart_step(state, batch, 5, 1e-4)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, counts = device_groups(prof)
+    busy = sum(groups.values())
+    emit({"phase": "profile", "what": "warmstart step", "B": 16,
           "wall_ms": wall_ms, "device_ms": groups, "device_busy_ms": busy,
           "device_idle_share": (1 - busy / wall_ms) if busy else None,
           "device_launches": sum(counts.values()),
@@ -914,9 +1459,15 @@ def main() -> int:
     K["folded_attend_tc"] = K["folded_tc"]
     K["folded_attend_simt"] = K["folded_simt"]
 
+    made = {}
     phases = (("kernels", lambda: phase_kernels(K)),
               ("reference", lambda: phase_reference(K)),
-              ("serve", lambda: phase_serve(K)))
+              ("serve", lambda: made.update(serve=phase_serve(K))),
+              ("train", lambda: made.update(train=phase_train(K))),
+              # the profiler runs last: once it has traced, the host
+              # launches more slowly
+              ("profile", lambda: (profile_decode(made["serve"]),
+                                   profile_train(*made["train"]))))
     for name, phase in phases:
         t0 = time.perf_counter()
         log(f"chip_smoke: phase {name}")
