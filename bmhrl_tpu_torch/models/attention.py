@@ -81,25 +81,44 @@ class MultiheadedAttention(nn.Module):
             w, b = self.merged_qkv_params()
             qkv = torch.nn.functional.linear(Q.to(dt), w.to(dt), b.to(dt))
             return qkv.split(self.d, dim=-1)
+        return (self.linear_Q2d(Q), *self.project_kv(K, V))
+
+    def project_kv(self, K: torch.Tensor, V: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Un-headed key/value projections (B, Sk, d) in the compute dtype,
+        one merged matmul when key and value alias. ``forward`` takes them
+        as ``precomputed_kv``, so a decode projects its static memories
+        once per clip."""
+        if K is not V:
+            return self.linear_K2d(K), self.linear_V2d(V)
+        dt = self.dtype
         w = torch.cat([self.linear_K2d.weight, self.linear_V2d.weight])
         b = torch.cat([self.linear_K2d.bias, self.linear_V2d.bias])
         kv = torch.nn.functional.linear(K.to(dt), w.to(dt), b.to(dt))
-        k3, v3 = kv.split(self.d, dim=-1)
-        return self.linear_Q2d(Q), k3, v3
+        return tuple(kv.split(self.d, dim=-1))
 
     def forward(self, Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
                 mask: Optional[torch.Tensor],
-                draws: Optional[Draws] = None) -> torch.Tensor:
+                draws: Optional[Draws] = None,
+                precomputed_kv: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None
+                ) -> torch.Tensor:
         """Full (non-causal) attention with a (B, 1, Sk) key pad mask, a
         (B, Sq, Sk) mask (the caption mask) or None, then dropout on the
         attention output (``draws``; None: none). The JAX package's gate:
         sites with a key pad mask (or none) that pass ``flash_qualifies``
-        run ``flash_attention_bsd`` on the un-headed projections."""
+        run ``flash_attention_bsd`` on the un-headed projections.
+        ``precomputed_kv``: ``project_kv(K, V)``, which then replaces the
+        key/value projections of K and V."""
         B, Sq, _ = Q.shape
-        q3, k3, v3 = self._project_qkv(Q, K, V)
+        if precomputed_kv is None:
+            q3, k3, v3 = self._project_qkv(Q, K, V)
+        else:
+            q3 = self.linear_Q2d(Q)
+            k3, v3 = precomputed_kv
         key_pad = mask is None or mask.shape[1] == 1
         if (key_pad and self.use_flash
-                and fused.flash_qualifies(K.shape[1], self.d_k)):
+                and fused.flash_qualifies(k3.shape[1], self.d_k)):
             key_mask = None if mask is None else mask[:, 0, :]
             out = fused.flash_attention_bsd(q3, k3, v3, key_mask, self.H)
             out = dropout(out.to(self.dtype), self.dout_p, draws)

@@ -12,7 +12,7 @@ and exploration noise, where the JAX package takes rngs.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -26,7 +26,9 @@ from bmhrl_tpu_torch.models.blocks import (Dense, Draws, PositionalEncoder,
                                            VocabularyEmbedder, dropout,
                                            rounded)
 from bmhrl_tpu_torch.models.critic import SegmentCritic
-from bmhrl_tpu_torch.ops.segments import expand_goals, frontier_goal
+from bmhrl_tpu_torch.ops.segments import (expand_goals,
+                                          frontier_exploration_noise,
+                                          frontier_goal)
 
 NEG_INF = -1e9
 
@@ -123,18 +125,27 @@ class BMFusionLayer(nn.Module):
         av = torch.sigmoid(self.a_v_constant.clamp(-2.0, 2.0))
         return (av * Cv + (1.0 - av) * Ca).to(self.dtype)
 
-    def forward(self, C, Av, Va, masks, draws=None):
+    def precompute_kv(self, Av, Va) -> Dict:
+        """The cross-attentions' key/value projections of the memories."""
+        return {"A": self.enc_att_A.project_kv(Av, Av),
+                "V": self.enc_att_V.project_kv(Va, Va)}
+
+    def forward(self, C, Av, Va, masks, draws=None, cross_kv=None):
         """Teacher-forced layer: C (B, L, Dc) under the caption mask
         ``masks["C_mask"]`` (B, L, L); Av, Va the encoder memories under
-        their (B, 1, S) pad masks. ``draws``: dropout draws (None: none)."""
+        their (B, 1, S) pad masks. ``draws``: dropout draws (None: none);
+        ``cross_kv``: ``precompute_kv(Av, Va)`` (None: project here)."""
         d = draws
+        kv = cross_kv or {}
         h = self.res_self_att.pre(C)
         C = self.res_self_att.post(
             C, self.self_att(h, h, h, masks["C_mask"], d), d)
         Ca = self.res_enc_att_A.post(C, self.enc_att_A(
-            self.res_enc_att_A.pre(C), Av, Av, masks["A_mask"], d), d)
+            self.res_enc_att_A.pre(C), Av, Av, masks["A_mask"], d,
+            kv.get("A")), d)
         Cv = self.res_enc_att_V.post(C, self.enc_att_V(
-            self.res_enc_att_V.pre(C), Va, Va, masks["V_mask"], d), d)
+            self.res_enc_att_V.pre(C), Va, Va, masks["V_mask"], d,
+            kv.get("V")), d)
         return self._blend(Ca, Cv)
 
     def step_weights(self) -> Dict:
@@ -179,9 +190,14 @@ class BMFusion(nn.Module):
     def layer(self, i: int) -> BMFusionLayer:
         return getattr(self, f"layer_{i}")
 
-    def forward(self, C, Av, Va, masks, draws=None):
+    def precompute_kv(self, Av, Va) -> List[Dict]:
+        return [self.layer(i).precompute_kv(Av, Va) for i in range(self.N)]
+
+    def forward(self, C, Av, Va, masks, draws=None, cross_kv=None):
+        """``cross_kv``: ``precompute_kv(Av, Va)`` (None: project here)."""
         for i in range(self.N):
-            C = self.layer(i)(C, Av, Va, masks, draws)
+            C = self.layer(i)(C, Av, Va, masks, draws,
+                              None if cross_kv is None else cross_kv[i])
         return C
 
 
@@ -265,6 +281,17 @@ class Worker(nn.Module):
         gc = att.folded_out(ctx, fw)
         h = torch.cat([wf_t[:, 0], gc.to(wf_t.dtype)], dim=-1)
         return torch.log_softmax(self.projection(h.float()), dim=-1)
+
+    def frontier(self, wf_t, worker_feat, goal_t, mask_row):
+        """Head at one position of a full buffer: goal_t (B, 1, d_goal)
+        attends the whole worker-feature buffer (B, L, Dc) under the
+        caption mask's row ``mask_row`` (B, 1, L); the vocabulary
+        projection runs on the frontier's features wf_t (B, 1, Dc) only.
+        Returns (B, V) log-probs."""
+        gc = self.goal_attention(goal_t.to(self.dtype), worker_feat,
+                                 worker_feat, mask_row)
+        h = torch.cat([wf_t, gc.to(wf_t.dtype)], dim=-1)
+        return torch.log_softmax(self.projection(h.float())[:, 0], dim=-1)
 
 
 class BMHrlAgent(nn.Module):
@@ -359,6 +386,52 @@ class BMHrlAgent(nn.Module):
         Va, Av = self.encode(V, A, masks, None if deterministic else draws)
         return self.predict_with_features(C_emb, Va, Av, masks, exploration,
                                           deterministic, draws)
+
+    # ---- the full-buffer decode: the fusion stacks over the whole buffer
+    # every token, heads at the frontier only
+    def critic_init_state(self, B: int) -> Dict:
+        return self.critic.init_state(B)
+
+    def critic_step(self, tok_t, state, crit_w):
+        """Advance the frozen critic by token ids (B,) -> ((B,) logit,
+        state); ``crit_w``: the critic's ``step_weights()``."""
+        score, state = self.critic.step(self.emb_C(tok_t[:, None])[:, 0],
+                                        state, crit_w)
+        return score[:, 0], state
+
+    def precompute_fusion_kv(self, Va, Av) -> Dict:
+        """Both stacks' cross-attention keys/values of the memories, once
+        per decode."""
+        return {"worker": self.bm_worker_fus.precompute_kv(Av, Va),
+                "manager": self.bm_manager_fus.precompute_kv(Av, Va)}
+
+    def decode_frontier(self, trg, labels, Va, Av, masks, t: int,
+                        exploration: bool = False,
+                        fusion_kv: Optional[Dict] = None,
+                        draws: Optional[Draws] = None):
+        """Log-probs (B, V) at position t of the buffer trg (B, L) with the
+        critic's segment labels (B, L) (zero past t), under ``masks`` with
+        the caption mask "C_mask": the fusion stacks run over the whole
+        buffer, the Manager's linear, the goal query and the vocabulary
+        projection at position t only. With ``exploration`` the goal gets
+        the Manager's noise with statistics over positions <= t
+        (``ops.segments.frontier_exploration_noise``, one normal draw from
+        ``draws``)."""
+        C = self.pos_enc_C(self.emb_C(trg)).to(self.dtype)
+        kv = fusion_kv or {}
+        worker_feat = self.bm_worker_fus(C, Av, Va, masks, None,
+                                         kv.get("worker"))
+        manager_feat = self.bm_manager_fus(C, Av, Va, masks, None,
+                                           kv.get("manager"))
+        x_t = self.manager.linear(manager_feat[:, t:t + 1].float())
+        if exploration:
+            x_t = x_t + frontier_exploration_noise(
+                self.manager.linear(manager_feat.float()), t,
+                self.manager.d_goal, draws, Manager.MEAN_FACTOR,
+                Manager.STD_FACTOR)
+        goal_t = frontier_goal(x_t, labels[:, t], labels.bool().any(dim=1))
+        return self.worker.frontier(worker_feat[:, t:t + 1], worker_feat,
+                                    goal_t, masks["C_mask"][:, t:t + 1])
 
     def init_decode_caches(self, B: int, L: int) -> Dict:
         """Per-row decode state: critic RNN state, per-stack per-layer

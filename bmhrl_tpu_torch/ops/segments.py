@@ -83,3 +83,21 @@ def frontier_goal(x_t: torch.Tensor, label_t: torch.Tensor,
     row0_zeroed = (torch.arange(B, device=x_t.device) == 0) & hb.any()
     keep_raw = lab | (hb & ~later) | (~hb & ~row0_zeroed)
     return torch.where(keep_raw[:, None, None], x_t, torch.zeros_like(x_t))
+
+
+def frontier_exploration_noise(x_full: torch.Tensor, t: int, d_goal: int,
+                               draws, mean_factor: float,
+                               std_factor: float) -> torch.Tensor:
+    """The Manager's exploration noise at the decode frontier t: one
+    (d_goal,) normal from ``draws`` (a ``blocks.Draws``), scaled by the
+    mean and the mean squared deviation of the goal-linear activations
+    x_full (B, L, d_goal) over positions <= t of every row (the growing
+    buffer's statistics; not ``Manager.forward``'s nan-statistics)."""
+    valid = (torch.arange(x_full.shape[1], device=x_full.device)
+             <= t)[None, :, None]
+    cnt = float((t + 1) * x_full.shape[0] * d_goal)
+    mean = (x_full * valid).sum() / cnt
+    var = ((x_full - mean) ** 2 * valid).sum() / cnt
+    mean = mean / mean_factor
+    std = torch.sqrt(var) / std_factor
+    return draws.normal((d_goal,)) * std + mean - 0.5 * mean

@@ -1,4 +1,5 @@
-"""Offline batch-captioning server, greedy (the port of bmhrl_tpu/serve.py).
+"""Offline batch-captioning server (the port of bmhrl_tpu/serve.py): greedy,
+sampled or beam-search captions.
 
 - Requests are bucketed by their post-crop feature lengths, probed from the
   ``.npy`` headers alone, so short clips never pay dataset-max padding.
@@ -8,11 +9,13 @@
   (``ops.segments.frontier_goal``), so other padding would change captions.
 - Feature loading runs in a thread pool; the prefetcher stages batch t+1 on
   the device while batch t decodes.
-- Each batch runs ``train.decode.decode``: the encoder once per clip and
-  O(1) positions per generated token.
+- Each batch runs ``train.decode.decode`` (greedy, or sampled with
+  temperature, top-k and nucleus shaping from one ``blocks.Draws`` per
+  server that advances batch by batch) or ``train.decode.beam_decode``:
+  the encoder once per clip and O(1) positions per generated token.
 
-Beam search, sampling and multi-device serving are not ported yet.
-Results come back in the ANet submission format.
+Multi-device serving is not ported yet. Results come back in the ANet
+submission format.
 """
 from __future__ import annotations
 
@@ -30,8 +33,9 @@ from bmhrl_tpu_torch.config import Config
 from bmhrl_tpu_torch.data import features as F
 from bmhrl_tpu_torch.data.dataset import Prefetcher
 from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD
+from bmhrl_tpu_torch.models.blocks import Draws
 from bmhrl_tpu_torch.ops.masking import make_masks
-from bmhrl_tpu_torch.train.decode import decode, detokenize
+from bmhrl_tpu_torch.train.decode import beam_decode, decode, detokenize
 
 
 @dataclass
@@ -163,10 +167,16 @@ def _load_batch(reqs: Sequence[ClipRequest], idxs: List[int], vb: int,
 
 
 class CaptionServer:
-    """Holds a loaded ``BMHrlAgent`` and captions request lists with greedy
-    decoding on ``device`` (the model's device)."""
+    """Holds a loaded ``BMHrlAgent`` and captions request lists on
+    ``device`` (the model's device): greedily by default, by beam search
+    with ``beam_width`` > 1 (``length_penalty``: GNMT normalisation), or by
+    sampling with ``sample`` (``temperature``, ``top_k``, ``top_p``; draws
+    from ``sample_seed``)."""
 
-    def __init__(self, cfg: Config, model, itos: List[str], device="cuda"):
+    def __init__(self, cfg: Config, model, itos: List[str], device="cuda",
+                 beam_width: int = 1, length_penalty: float = 0.0,
+                 sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 0.0, sample_seed: int = 0):
         self.cfg = cfg
         self.model = model
         self.itos = itos
@@ -174,6 +184,40 @@ class CaptionServer:
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, server on "
                              f"{self.device}")
+        self.beam_width = int(beam_width)
+        self.length_penalty = float(length_penalty)
+        self.sample = bool(sample)
+        if self.sample and self.beam_width > 1:
+            raise ValueError("choose sampling OR beam search, not both")
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self._draws = None
+        if self.sample:
+            # checked here: a bad value would otherwise fail (or give NaN
+            # probabilities) inside the first caption() call
+            if self.temperature <= 0.0:
+                raise ValueError("temperature must be > 0 (use sample=False "
+                                 "for greedy decoding)")
+            if self.top_k < 0 or self.top_k > len(itos):
+                raise ValueError(f"top_k={self.top_k} out of range for a "
+                                 f"{len(itos)}-word vocabulary")
+            if not 0.0 <= self.top_p <= 1.0:
+                raise ValueError(f"top_p={self.top_p} must be in [0, 1]")
+            self._draws = Draws(sample_seed, self.device)
+
+    def _decode(self, feats: Dict, masks_src: Dict):
+        """One batch -> token ids (B, max_len+1)."""
+        args = (self.model, feats, masks_src, self.cfg.max_len, BOS, EOS,
+                PAD)
+        if self.beam_width > 1:
+            return beam_decode(*args, beam_width=self.beam_width,
+                               length_penalty=self.length_penalty)[0]
+        if self.sample:
+            return decode(*args, greedy=False, draws=self._draws,
+                          temperature=self.temperature, top_k=self.top_k,
+                          top_p=self.top_p)[0]
+        return decode(*args)[0]
 
     def caption(self, reqs: Sequence[ClipRequest],
                 batch_size: Optional[int] = None,
@@ -197,8 +241,7 @@ class CaptionServer:
             for batch in Prefetcher(batch_iter(), 2, self.device):
                 bt0 = time.perf_counter()
                 feats = {k: batch[k] for k in ("rgb", "flow", "audio")}
-                tokens, _ = decode(self.model, feats, make_masks(feats),
-                                   cfg.max_len, BOS, EOS, PAD)
+                tokens = self._decode(feats, make_masks(feats))
                 toks = tokens[: batch["n_valid"]].cpu().numpy()
                 for i, sent in zip(batch["idxs"], detokenize(toks, self.itos)):
                     sentences[i] = sent

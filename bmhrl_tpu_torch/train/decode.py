@@ -1,7 +1,8 @@
-"""Greedy, KV-cached caption decode (the port of the greedy branch of
-bmhrl_tpu/train/decode.py: ``decode`` -> ``_decode_loop_fast`` with
-``_fast_setup``).
+"""Caption decoders (the port of bmhrl_tpu/train/decode.py for the bimodal
+``BMHrlAgent``): greedy and sampled decode, beam search, each on the fast
+incremental loop and on the full-buffer loop.
 
+The fast loop (``_fast_setup``):
 - The bimodal encoder runs once per clip.
 - The frozen critic's RNN state is carried across steps (6 cell kernels per
   token instead of a rescan of the caption); its weights are packed for
@@ -10,9 +11,21 @@ bmhrl_tpu/train/decode.py: ``decode`` -> ``_decode_loop_fast`` with
   cross-attention against the RAW encoder memories. The worker and manager
   fusion stacks run as two passes over their own weights, but their
   cross-attention queries meet in ONE ``folded_attend`` per branch and
-  layer (G = 2 x heads), so both stacks share one read of each memory.
-- The loop is a host loop over positions that stops once every row has
-  emitted </s> (one device sync per token).
+  layer (G = 2 x heads), so both stacks share one read of each memory. In
+  beam search the W beams of a clip join them too (G = 2 x heads x W), so
+  each clip's memory is read once per step for all its beams.
+
+The full-buffer loop (``_decode_loop``, ``beam_decode(use_fast=False)``)
+runs both fusion stacks over the whole caption buffer every token, with the
+memories' cross-attention keys/values projected once per call, and the
+heads at the frontier only (``BMHrlAgent.decode_frontier``). It is the
+loop of ``decode(exploration=True)``: the Manager's exploration noise
+needs the statistics of the whole buffer.
+
+Both loops are host loops over positions that stop once every row has
+emitted </s> (one device sync per token). Randomness comes from a
+``blocks.Draws``: one (B, V) uniform of its "sample" stream per sampled
+step, one (d_goal,) normal of its "noise" stream per exploring step.
 
 Tokens after a row's </s> are garbage, as in the reference; ``detokenize``
 cuts at the first </s>.
@@ -20,18 +33,69 @@ cuts at the first </s>.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from bmhrl_tpu_torch.data.vocab import EOS, SPECIALS
+from bmhrl_tpu_torch.models.blocks import Draws
 from bmhrl_tpu_torch.ops import attention as fused
+from bmhrl_tpu_torch.ops.masking import c_mask
+
+NEG_INF = -1e9
 
 
-def _fast_setup(model, Va, Av, masks_src, B: int, L: int):
+def sample_filter(logits: torch.Tensor, temperature: float = 1.0,
+                  top_k: int = 0, top_p: float = 0.0) -> torch.Tensor:
+    """Sampling controls over per-step (B, V) log-probs, in this order:
+    temperature, top-k, nucleus (top-p, on the top-k-filtered values: the
+    smallest prefix whose mass reaches top_p, at least one entry). An entry
+    is dropped (set to -1e9) only when it is strictly below the threshold,
+    so ties at the threshold stay; the top-1 token always survives."""
+    if temperature != 1.0:
+        logits = logits / temperature
+    if top_k and top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, NEG_INF)
+    if top_p and top_p > 0.0:
+        sl = logits.sort(dim=-1, descending=True).values
+        probs = torch.softmax(sl, dim=-1)
+        cum = probs.cumsum(dim=-1)
+        keep = ((cum - probs) < top_p).sum(dim=-1, keepdim=True).clamp_min(1)
+        thresh = sl.gather(-1, keep - 1)
+        logits = logits.masked_fill(logits < thresh, NEG_INF)
+    return logits
+
+
+def _pick(logits_t, greedy: bool, draws: Optional[Draws], sample_args):
+    """The next token of each row: argmax, or one sample of the filtered
+    log-probs (one (B, V) uniform from ``draws``)."""
+    if greedy:
+        return logits_t.argmax(dim=-1)
+    return draws.categorical(sample_filter(logits_t, *sample_args))
+
+
+def _gather(x, idx):
+    """Rows ``idx`` of every tensor of a nest of dicts, lists and tuples."""
+    if isinstance(x, dict):
+        return {k: _gather(v, idx) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_gather(v, idx) for v in x)
+    return x.index_select(0, idx)
+
+
+def _fast_setup(model, Va, Av, masks_src, B: int, L: int,
+                beam_share: int = 1):
     """Decode state and the per-token step. Returns (caches0, valid0,
     step_fn) with ``step_fn(tok_t, t, caches, valid) -> (log-probs,
-    caches)``; caches are updated in place."""
+    caches)``; the step writes the caches it is given in place, so after a
+    parent gather (``_gather(caches, idx)``) the next step writes into the
+    gathered tensors.
+
+    ``beam_share`` = W > 1: B counts ROWS (clips x beams, clip-major) while
+    Va, Av and masks_src stay at clip level; the W beams of a clip fold
+    into the query-group axis of ``folded_attend`` (one call per branch and
+    layer, G = 2 x heads x W)."""
     caches0 = model.init_decode_caches(B, L)
     stacks = (model.bm_worker_fus, model.bm_manager_fus)
     N, H = model.att_layers, model.att_heads
@@ -47,6 +111,15 @@ def _fast_setup(model, Va, Av, masks_src, B: int, L: int):
     valid0 = torch.zeros(B, L, dtype=torch.bool, device=Va.device)
     valid0[:, 0] = True
 
+    def attend(q_rows, mem, mask):
+        # (rows, 2H, draw) -> (clips, W x 2H, draw): each clip's memory is
+        # read once for all its beams (rows are clip-major)
+        R, G, draw = q_rows.shape
+        ctx = fused.folded_attend(
+            q_rows.reshape(R // beam_share, beam_share * G, draw), mem, mask,
+            scale)
+        return ctx.reshape(R, G, draw)
+
     def step_fn(tok_t, t: int, caches, valid):
         c_t, label_t, crit = model.decode_step_head(tok_t, t,
                                                     caches["critic"], crit_w)
@@ -55,11 +128,11 @@ def _fast_setup(model, Va, Av, masks_src, B: int, L: int):
             pre = [stacks[s].layer(i).step_mem_pre(
                 c[s], t, caches["fus"][s][i], valid, sw[s][i])
                 for s in range(2)]
-            # worker heads first, then manager heads: (B, 2H, draw)
-            ctx_A = fused.folded_attend(
-                torch.cat([pre[0][1], pre[1][1]], dim=1), Av, mask_A, scale)
-            ctx_V = fused.folded_attend(
-                torch.cat([pre[0][2], pre[1][2]], dim=1), Va, mask_V, scale)
+            # worker heads first, then manager heads: (rows, 2H, draw)
+            ctx_A = attend(torch.cat([pre[0][1], pre[1][1]], dim=1), Av,
+                           mask_A)
+            ctx_V = attend(torch.cat([pre[0][2], pre[1][2]], dim=1), Va,
+                           mask_V)
             c = [stacks[s].layer(i).step_mem_post(
                 pre[s][0], ctx_A[:, s * H:(s + 1) * H],
                 ctx_V[:, s * H:(s + 1) * H], sw[s][i]) for s in range(2)]
@@ -72,21 +145,69 @@ def _fast_setup(model, Va, Av, masks_src, B: int, L: int):
     return caches0, valid0, step_fn
 
 
-def _decode_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
-                      start_idx: int, end_idx: int, pad_idx: int):
-    L = max_len + 1
-    dev = Va.device
+def _start(B: int, L: int, start_idx: int, pad_idx: int, dev):
+    """(token buffer (B, L) of PAD after <s>, per-position probabilities,
+    done flags)."""
     trg = torch.full((B, L), pad_idx, dtype=torch.int64, device=dev)
     trg[:, 0] = start_idx
-    probs = torch.zeros(B, L, dtype=torch.float32, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    return (trg, torch.zeros(B, L, dtype=torch.float32, device=dev),
+            torch.zeros(B, dtype=torch.bool, device=dev))
+
+
+def _decode_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
+                      start_idx: int, end_idx: int, pad_idx: int,
+                      greedy: bool, draws: Optional[Draws], sample_args):
+    L = max_len + 1
+    trg, probs, done = _start(B, L, start_idx, pad_idx, Va.device)
     caches, valid, step_fn = _fast_setup(model, Va, Av, masks_src, B, L)
     for t in range(max_len):
         tok_t = trg[:, t]
         valid[:, t] = tok_t != pad_idx
         valid[:, 0] = True
         logits_t, caches = step_fn(tok_t, t, caches, valid)
-        nxt = logits_t.argmax(dim=-1)
+        nxt = _pick(logits_t, greedy, draws, sample_args)
+        trg[:, t + 1] = nxt
+        # the model's TRUE probability of the chosen token: the sampling
+        # filter only shapes the proposal
+        probs[:, t + 1] = logits_t.gather(1, nxt[:, None])[:, 0].exp()
+        done |= nxt == end_idx
+        if bool(done.all()):
+            break
+    return trg, probs
+
+
+def full_buffer_step(model, trg, labels, t: int, crit, crit_w, Va, Av,
+                     masks_src, fusion_kv, pad_idx: int,
+                     exploration: bool = False,
+                     draws: Optional[Draws] = None):
+    """One step of the full-buffer loop: advance the critic with token t
+    of the buffer trg (B, L), write its segment label into ``labels`` (in
+    place), then the log-probs (B, V) at t (``decode_frontier``). Returns
+    (log-probs, critic state)."""
+    score_t, crit = model.critic_step(trg[:, t], crit, crit_w)
+    labels[:, t] = (torch.sigmoid(score_t)
+                    > model.critic_score_threshold).to(torch.int32)
+    masks = dict(masks_src, C_mask=c_mask(trg, pad_idx))
+    return model.decode_frontier(trg, labels, Va, Av, masks, t, exploration,
+                                 fusion_kv, draws), crit
+
+
+def _decode_loop(model, Va, Av, masks_src, B: int, max_len: int,
+                 start_idx: int, end_idx: int, pad_idx: int, greedy: bool,
+                 draws: Optional[Draws], exploration: bool, sample_args):
+    """The full-buffer loop: the critic advanced one token per step, the
+    fusion stacks over the whole buffer, the heads at the frontier."""
+    L = max_len + 1
+    trg, probs, done = _start(B, L, start_idx, pad_idx, Va.device)
+    labels = torch.zeros(B, L, dtype=torch.int32, device=Va.device)
+    crit_w = model.critic.step_weights()
+    crit = model.critic_init_state(B)
+    fusion_kv = model.precompute_fusion_kv(Va, Av)
+    for t in range(max_len):
+        logits_t, crit = full_buffer_step(model, trg, labels, t, crit, crit_w,
+                                          Va, Av, masks_src, fusion_kv,
+                                          pad_idx, exploration, draws)
+        nxt = _pick(logits_t, greedy, draws, sample_args)
         trg[:, t + 1] = nxt
         probs[:, t + 1] = logits_t.gather(1, nxt[:, None])[:, 0].exp()
         done |= nxt == end_idx
@@ -98,15 +219,156 @@ def _decode_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
 @torch.no_grad()
 def decode(model, feats: Dict[str, torch.Tensor],
            masks_src: Dict[str, torch.Tensor], max_len: int, start_idx: int,
-           end_idx: int, pad_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy decode. feats: {'rgb', 'flow', 'audio'} on the model's device;
-    V = rgb + flow. Returns (tokens (B, max_len+1) int64, the model's
-    probability of each chosen token (B, max_len+1) f32)."""
+           end_idx: int, pad_idx: int, greedy: bool = True,
+           draws: Optional[Draws] = None, exploration: bool = False,
+           use_fast: Optional[bool] = None, temperature: float = 1.0,
+           top_k: int = 0, top_p: float = 0.0
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy or sampled decode. feats: {'rgb', 'flow', 'audio'} on the
+    model's device; V = rgb + flow. ``greedy=False`` samples from the
+    log-probs shaped by temperature/top_k/top_p (``sample_filter``) with
+    the uniforms of ``draws`` ("sample" stream; seed 0 when None);
+    ``exploration`` adds the Manager's noise ("noise" stream) and always
+    takes the full-buffer loop; ``use_fast`` (default: not exploration)
+    picks the fast loop. Returns (tokens (B, max_len+1) int64, the model's
+    TRUE probability of each chosen token (B, max_len+1) f32)."""
     V = feats["rgb"] + feats["flow"]
     A = feats["audio"]
     Va, Av = model.encode(V, A, masks_src)
-    return _decode_loop_fast(model, Va, Av, masks_src, V.shape[0], max_len,
-                             start_idx, end_idx, pad_idx)
+    if draws is None and (exploration or not greedy):
+        draws = Draws(0, Va.device)
+    if use_fast is None:
+        use_fast = not exploration
+    args = (model, Va, Av, masks_src, V.shape[0], max_len, start_idx,
+            end_idx, pad_idx, greedy, draws)
+    sample_args = (temperature, top_k, top_p)
+    if use_fast and not exploration:
+        return _decode_loop_fast(*args, sample_args)
+    return _decode_loop(*args, exploration, sample_args)
+
+
+def _beam_start(B: int, W: int, L: int, start_idx: int, pad_idx: int, dev):
+    """(token buffer, done flags, scores, lengths) of B x W clip-major
+    rows; beams 1..W-1 start dead, so step 0 selects from beam 0's
+    candidates."""
+    trg, _, done = _start(B * W, L, start_idx, pad_idx, dev)
+    scores = torch.zeros(B, W, dtype=torch.float32, device=dev)
+    scores[:, 1:] = NEG_INF
+    return (trg, done, scores.reshape(-1),
+            torch.zeros(B * W, dtype=torch.int64, device=dev))
+
+
+def _beam_step(logits_t, scores, done, B: int, W: int, pad_idx: int):
+    """Candidates of one step: cumulative log-probs over (B, W x V), a
+    finished beam continuing only with PAD at an unchanged score. Returns
+    (flat parent rows (B*W,), tokens (B*W,), scores (B*W,))."""
+    voc = logits_t.shape[-1]
+    # built on the device: writing a host scalar into it would sync
+    pad_row = torch.where(torch.arange(voc, device=logits_t.device)
+                          == pad_idx, 0.0, NEG_INF)
+    logp = torch.where(done[:, None], pad_row[None], logits_t)
+    cand = (scores[:, None] + logp).reshape(B, W * voc)
+    # sorted, as lax.top_k; the only exact ties are the -1e9 candidates of
+    # dead and finished beams, never picked while a clip has W finite ones
+    top_s, top_i = torch.topk(cand, W, dim=-1, sorted=True)
+    parent = top_i // voc
+    flat_parent = (torch.arange(B, device=cand.device)[:, None] * W
+                   + parent).reshape(-1)
+    return flat_parent, (top_i % voc).reshape(-1), top_s.reshape(-1)
+
+
+def _beam_pick(trg, scores, lengths, B: int, W: int, length_penalty: float):
+    """Final selection: GNMT length normalisation score / ((5+len)/6)^lp,
+    the best row per clip."""
+    ranked = scores
+    if length_penalty > 0.0:
+        ranked = scores / ((5.0 + lengths.float()) / 6.0) ** length_penalty
+    best = ranked.reshape(B, W).argmax(dim=-1)
+    rows = torch.arange(B, device=trg.device) * W + best
+    return trg[rows], scores[rows]
+
+
+def _beam_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
+                    start_idx: int, end_idx: int, pad_idx: int, W: int,
+                    length_penalty: float):
+    """Beam search over the incremental step: every per-row cache (KV,
+    critic state, goal buffer, boundary flag, validity) gathered by parent
+    beam each step; memories at clip level, shared by the beams."""
+    L = max_len + 1
+    trg, done, scores, lengths = _beam_start(B, W, L, start_idx, pad_idx,
+                                             Va.device)
+    caches, valid, step_fn = _fast_setup(model, Va, Av, masks_src, B * W, L,
+                                         beam_share=W)
+    for t in range(max_len):
+        tok_t = trg[:, t]
+        valid[:, t] = tok_t != pad_idx
+        valid[:, 0] = True
+        logits_t, caches = step_fn(tok_t, t, caches, valid)
+        parent, token, scores = _beam_step(logits_t, scores, done, B, W,
+                                           pad_idx)
+        prev_done = done[parent]
+        trg = trg[parent]
+        trg[:, t + 1] = token
+        valid = valid[parent]
+        caches = _gather(caches, parent)
+        lengths = lengths[parent] + (~prev_done).long()
+        done = prev_done | (token == end_idx)
+        if bool(done.all()):
+            break
+    return _beam_pick(trg, scores, lengths, B, W, length_penalty)
+
+
+def _beam_loop_full(model, Va, Av, masks_src, B: int, max_len: int,
+                    start_idx: int, end_idx: int, pad_idx: int, W: int,
+                    length_penalty: float):
+    """Beam search over the full-buffer step, memories repeated per beam;
+    the buffer, the labels and the critic state gathered by parent."""
+    L = max_len + 1
+    BW = B * W
+    Va, Av = Va.repeat_interleave(W, 0), Av.repeat_interleave(W, 0)
+    masks = {k: v.repeat_interleave(W, 0) for k, v in masks_src.items()}
+    trg, done, scores, lengths = _beam_start(B, W, L, start_idx, pad_idx,
+                                             Va.device)
+    labels = torch.zeros(BW, L, dtype=torch.int32, device=Va.device)
+    crit_w = model.critic.step_weights()
+    crit = model.critic_init_state(BW)
+    fusion_kv = model.precompute_fusion_kv(Va, Av)
+    for t in range(max_len):
+        logits_t, crit = full_buffer_step(model, trg, labels, t, crit, crit_w,
+                                          Va, Av, masks, fusion_kv, pad_idx)
+        parent, token, scores = _beam_step(logits_t, scores, done, B, W,
+                                           pad_idx)
+        prev_done = done[parent]
+        trg = trg[parent]
+        trg[:, t + 1] = token
+        labels = labels[parent]
+        crit = _gather(crit, parent)
+        lengths = lengths[parent] + (~prev_done).long()
+        done = prev_done | (token == end_idx)
+        if bool(done.all()):
+            break
+    return _beam_pick(trg, scores, lengths, B, W, length_penalty)
+
+
+@torch.no_grad()
+def beam_decode(model, feats: Dict[str, torch.Tensor],
+                masks_src: Dict[str, torch.Tensor], max_len: int,
+                start_idx: int, end_idx: int, pad_idx: int,
+                beam_width: int = 4, length_penalty: float = 0.0,
+                use_fast: Optional[bool] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search in a clip-major (B x W) row layout: candidates are
+    cumulative log-probs, parents gathered by top-k index, finished beams
+    continue with a forced PAD at unchanged score, and the final pick
+    divides by ((5+len)/6)^length_penalty. ``use_fast`` (default on): the
+    incremental loop; else the full-buffer loop. Returns (tokens of the
+    best beam (B, max_len+1) int64, its cumulative log-prob (B,) f32)."""
+    V = feats["rgb"] + feats["flow"]
+    Va, Av = model.encode(V, feats["audio"], masks_src)
+    fast = use_fast is None or use_fast
+    loop = _beam_loop_fast if fast else _beam_loop_full
+    return loop(model, Va, Av, masks_src, V.shape[0], max_len, start_idx,
+                end_idx, pad_idx, int(beam_width), length_penalty)
 
 
 def detokenize(tokens, itos) -> list:

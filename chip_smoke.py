@@ -34,7 +34,24 @@ Phases, each of which raises at its first failure:
    path must have launched. Then clips/s of greedy decode at B=32 and
    B=256 (Sv=128, Sa=256, 30 tokens), the per-step token agreement of the
    kernels and the plain versions fed the same tokens;
-5. train: the training path through ``train.steps.StepFactory``. Flash
+5. decode_modes: every decode mode. The small f32 model on the card and
+   on the CPU with the same draws: beam W=3 (length penalty 0 and 1),
+   sampled, the full-buffer greedy, beam and exploration decodes, all
+   identical; on the card the full-buffer loops give the fast loops'
+   tokens. The flagship serves the 64 requests with beam search (W=4,
+   length penalty 1) and with sampling (temperature 0.8, top_p 0.9, seed
+   0), each a main path with its launch counts zeroed just before and read
+   just after (only the tensor-core routes); a second sampled serve with
+   the seed repeats the captions; top_k=1 sampling equals greedy; beam
+   W=1 agrees with greedy on >= 99% of tokens; each W=4 beam score is the
+   sum of its tokens' log-probs under the greedy step (2e-2); the
+   full-buffer step fed a fast decode's tokens agrees on >= 95% of steps
+   with 8 tensor-core flash launches per token; every loop syncs the host
+   once per token (``torch.cuda.set_sync_debug_mode``). Folded attention
+   at the beam shape (64 clips, G=32) against the repeated layout (256
+   rows, G=8), the library call and the bound; clips/s of beam W=4
+   (B=64), sampled (B=256) and full-buffer greedy (B=32) decode;
+6. train: the training path through ``train.steps.StepFactory``. Flash
    attention's gradient (the autograd Function: kernel forward, the JAX
    package's recompute as backward) against autograd through the plain
    version at the training shapes, bf16 (tensor-core route) and f32
@@ -56,8 +73,9 @@ Phases, each of which raises at its first failure:
    forward/backward/optimizer split from CUDA events, and the flash
    forward kernel, backward recompute and
    ``scaled_dot_product_attention`` forward + backward at the B=16 sites;
-6. profile: one B=256 greedy decode and one B=16 warmstart step under
-   ``torch.profiler`` (last: a profiled process launches more slowly).
+7. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
+   one B=16 warmstart step under ``torch.profiler`` (last: a profiled
+   process launches more slowly).
 
 Prints the card's name and power limit first, one JSON line per measurement,
 a ``kernels`` line, and last the line
@@ -75,6 +93,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from contextlib import contextmanager
 from unittest import mock
 
@@ -211,11 +230,77 @@ class Kernel:
         self.rec["max_abs_err"] = max(self.rec["max_abs_err"], e)
 
 
+def host_draws_class():
+    """A ``blocks.Draws`` whose generators live on the CPU and whose draws
+    are copied to ``device``, so a run on the card takes the CPU run's
+    draws (imported here: the script starts without the package)."""
+    import torch
+
+    from bmhrl_tpu_torch.models.blocks import Draws
+
+    class HostDraws(Draws):
+        def __init__(self, seed, device):
+            super().__init__(seed, "cpu")
+            self.target = torch.device(device)
+
+        def _draw(self, fn, stream, *args):
+            return super()._draw(fn, stream, *args).to(self.target)
+
+    return HostDraws
+
+
 def check_close(name, got, want, tol):
     err = float((got.float() - want.float()).abs().max())
     if not math.isfinite(err) or err > tol:
         raise AssertionError(f"{name}: max abs err {err} > tol {tol}")
     return err
+
+
+def folded_times(qe, mem, mask, scale):
+    """Folded attention's (kernel, eager kernel, plain, library, bytes,
+    ops). Each timed function cycles through copies of its inputs that
+    together exceed the 50 MB L2 cache (at most 64 copies), as the decode
+    finds the memories cold."""
+    import torch
+
+    from bmhrl_tpu_torch.ops import attention as att
+
+    B, G, draw = qe.shape
+    S = mem.shape[1]
+    nbytes = (2 * B * G * draw * 4 + B * S * draw * mem.element_size()
+              + (0 if mask is None else B * S * 4))
+    n = min(64, max(1, math.ceil(120e6 / nbytes)))
+    sets = [(qe, mem, mask)] + [
+        (qe.clone(), mem.clone(), None if mask is None else mask.clone())
+        for _ in range(n - 1)]
+    negs = [torch.zeros(B, 1, S, device=mem.device, dtype=mem.dtype)
+            if mk is None else
+            torch.zeros(B, 1, S, device=mem.device, dtype=mem.dtype)
+            .masked_fill(~(mk > 0)[:, None, :], -1e9) for _, _, mk in sets]
+
+    def cycle(call):
+        state = {"i": 0}
+
+        def run():
+            i = state["i"] % n
+            state["i"] += 1
+            return call(i, *sets[i])
+        return run
+
+    def library(i, q, m, mk):
+        s = torch.matmul((q * scale).to(m.dtype), m.transpose(1, 2))
+        p = torch.softmax((s + negs[i]).float(), dim=-1)
+        return torch.matmul(p.to(m.dtype), m)
+
+    iters = 4 * n
+    ms = time_ms(cycle(lambda i, q, m, mk: att.folded_attend(
+        q, m, mk, scale)), iters=iters)
+    ems = eager_ms(cycle(lambda i, q, m, mk: att.folded_attend(
+        q, m, mk, scale)), iters=iters)
+    pms = time_ms(cycle(lambda i, q, m, mk: att.folded_attend_plain(
+        q, m, mk, scale)), iters=iters)
+    lms = time_ms(cycle(library), iters=iters)
+    return ms, ems, pms, lms, nbytes, 4.0 * B * G * S * draw
 
 
 # --------------------------------------------------------------------------
@@ -381,48 +466,6 @@ def phase_kernels(K):
                 mem[B - 1].float().mean(0).expand(G, -1), 1e-4))
         folded_rec[route].err(e)
         return e, route
-
-    def folded_times(qe, mem, mask, scale):
-        """(kernel, eager kernel, plain, library, bytes, ops). Each timed
-        function cycles through copies of its inputs that together exceed
-        the 50 MB L2 cache (at most 64 copies), as the decode finds the
-        memories cold."""
-        B, G, draw = qe.shape
-        S = mem.shape[1]
-        nbytes = (2 * B * G * draw * 4 + B * S * draw * mem.element_size()
-                  + (0 if mask is None else B * S * 4))
-        n = min(64, max(1, math.ceil(120e6 / nbytes)))
-        sets = [(qe, mem, mask)] + [
-            (qe.clone(), mem.clone(), None if mask is None else mask.clone())
-            for _ in range(n - 1)]
-        negs = [torch.zeros(B, 1, S, device=dev, dtype=mem.dtype)
-                if mk is None else
-                torch.zeros(B, 1, S, device=dev, dtype=mem.dtype).masked_fill(
-                    ~(mk > 0)[:, None, :], -1e9) for _, _, mk in sets]
-
-        def cycle(call):
-            state = {"i": 0}
-
-            def run():
-                i = state["i"] % n
-                state["i"] += 1
-                return call(i, *sets[i])
-            return run
-
-        def library(i, q, m, mk):
-            s = torch.matmul((q * scale).to(m.dtype), m.transpose(1, 2))
-            p = torch.softmax((s + negs[i]).float(), dim=-1)
-            return torch.matmul(p.to(m.dtype), m)
-
-        iters = 4 * n
-        ms = time_ms(cycle(lambda i, q, m, mk: att.folded_attend(
-            q, m, mk, scale)), iters=iters)
-        ems = eager_ms(cycle(lambda i, q, m, mk: att.folded_attend(
-            q, m, mk, scale)), iters=iters)
-        pms = time_ms(cycle(lambda i, q, m, mk: att.folded_attend_plain(
-            q, m, mk, scale)), iters=iters)
-        lms = time_ms(cycle(library), iters=iters)
-        return ms, ems, pms, lms, nbytes, 4.0 * B * G * S * draw
 
     G = 8
     scale = 1.0 / math.sqrt(d)
@@ -818,6 +861,403 @@ def forced_agreement(model, feats, masks, tokens):
     return float(torch.stack(same).float().mean()), regret
 
 
+# --------------------------------------------------------------------------
+def small_modes_card_vs_cpu():
+    """The small f32 model decoded in every mode on the card (kernels) and
+    on the CPU (plain versions), the same draws fed to both: beam W=3 at
+    length penalty 0 and 1, sampled (temperature 0.8, top_k 5, top_p 0.9),
+    the full-buffer greedy, beam and exploration decodes. Identical tokens,
+    probabilities and scores within 1e-4; on the card the full-buffer
+    greedy and beam decodes give the fast loops' tokens."""
+    import torch
+
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.train.decode import beam_decode, decode
+
+    HostDraws = host_draws_class()
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(dict(SMALL, dtype=torch.float32), device, seed=3)
+        feats = make_feats(8, 128, 160, 128, 128, device, seed=3)
+        feats["audio"][2, 90:] = 0.0     # ragged audio
+        feats["rgb"][5] = 0.0            # a zero-feature (fully masked) row
+        masks = make_masks(feats)
+        args = (model, feats, masks, 12, 2, 3, 1)
+        _cuda.reset_launches()
+        runs = {
+            "fast_greedy": decode(*args),
+            "beam_lp0": beam_decode(*args, beam_width=3),
+            "beam_lp1": beam_decode(*args, beam_width=3, length_penalty=1.0),
+            "sampled": decode(*args, greedy=False,
+                              draws=HostDraws(5, device), temperature=0.8,
+                              top_k=5, top_p=0.9),
+            "full_greedy": decode(*args, use_fast=False),
+            "full_beam": beam_decode(*args, beam_width=3, use_fast=False),
+            "full_explore": decode(*args, exploration=True,
+                                   draws=HostDraws(6, device))}
+        out[device] = {k: (t.cpu(), p.cpu()) for k, (t, p) in runs.items()}
+        if device == "cuda":
+            launches = dict(_cuda.LAUNCHES)
+    res = {}
+    for k, (tok, p) in out["cuda"].items():
+        tok_h, p_h = out["cpu"][k]
+        res[k] = {"tokens_identical": bool(torch.equal(tok, tok_h)),
+                  "max_abs_err": float((p - p_h).abs().max())}
+    card = out["cuda"]
+    res["card_full_greedy_eq_fast"] = bool(torch.equal(
+        card["full_greedy"][0], card["fast_greedy"][0]))
+    res["card_full_beam_eq_fast"] = bool(torch.equal(
+        card["full_beam"][0], card["beam_lp0"][0]))
+    emit({"phase": "decode_modes", "check": "small_card_vs_cpu",
+          "dtype": "f32", "results": res, "tol": 1e-4,
+          "launches": launches})
+    bad = [k for k, v in res.items() if v is False or isinstance(v, dict) and (
+        not v["tokens_identical"] or not v["max_abs_err"] <= 1e-4)]
+    if bad:
+        raise AssertionError(f"decode modes, card vs CPU: {bad}")
+
+
+def score_gap(model, feats, masks, tokens, scores, end_idx, rows_per_clip):
+    """Largest |beam score - sum of its tokens' log-probs| (up to and
+    including </s>) under the fast step fed the beam's tokens, each clip's
+    tokens on ``rows_per_clip`` rows: 1 is the greedy layout; W is the
+    beam loop's (the W beams of a clip on one folded call), where the step
+    computes each row as the beam loop did, so a parent gather that moved
+    any cache wrongly shows above bf16 rounding."""
+    import torch
+
+    from bmhrl_tpu_torch.train.decode import _fast_setup
+
+    tokens = tokens.repeat_interleave(rows_per_clip, 0)
+    scores = scores.repeat_interleave(rows_per_clip, 0)
+    B, L = tokens.shape
+    with torch.no_grad():
+        Va, Av = model.encode(feats["rgb"] + feats["flow"], feats["audio"],
+                              masks)
+        caches, valid, step = _fast_setup(model, Va, Av, masks, B, L,
+                                          beam_share=rows_per_clip)
+        total = torch.zeros(B, device=tokens.device)
+        ended = torch.zeros(B, dtype=torch.bool, device=tokens.device)
+        for t in range(L - 1):
+            valid[:, t] = tokens[:, t] != 1
+            valid[:, 0] = True
+            logp, caches = step(tokens[:, t], t, caches, valid)
+            total += torch.where(ended, 0.0, logp.gather(
+                1, tokens[:, t + 1, None])[:, 0])
+            ended |= tokens[:, t + 1] == end_idx
+    return float((scores - total).abs().max())
+
+
+def full_buffer_forced(model, feats, masks, tokens):
+    """Per-step argmax agreement of the full-buffer step with ``tokens``
+    (a fast decode's), the buffer fed those tokens, and the flash launches
+    of the steps (the encoder's excluded)."""
+    import torch
+
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.train.decode import full_buffer_step
+
+    B, L = tokens.shape
+    with torch.no_grad():
+        Va, Av = model.encode(feats["rgb"] + feats["flow"], feats["audio"],
+                              masks)
+        kv = model.precompute_fusion_kv(Va, Av)
+        crit_w = model.critic.step_weights()
+        crit = model.critic_init_state(B)
+        trg = torch.full_like(tokens, 1)
+        trg[:, 0] = tokens[:, 0]
+        labels = torch.zeros_like(tokens, dtype=torch.int32)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        same = []
+        for t in range(L - 1):
+            logp, crit = full_buffer_step(model, trg, labels, t, crit,
+                                          crit_w, Va, Av, masks, kv, 1)
+            same.append(logp.argmax(-1) == tokens[:, t + 1])
+            trg[:, t + 1] = tokens[:, t + 1]
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    return float(torch.stack(same).float().mean()), launches
+
+
+def folded_beam_shape(K):
+    """K3 at the beam serve's shape: B=64 clips, G = 2 stacks x 4 heads x
+    4 beams = 32, the audio (S 256, draw 128) and video (S 128, draw 1024)
+    calls of one layer's token step, a fully-masked row; against the
+    repeated layout (256 rows of G=8, each clip's memory copied per beam)
+    and the library call, with the bound counting the memory once."""
+    import torch
+
+    from bmhrl_tpu_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    Bc, W, G = 64, 4, 32
+    scale = 1.0 / math.sqrt(256)
+    pair = dict(kernel_ms=0.0, split1_ms=0.0, repeated_ms=0.0, plain_ms=0.0,
+                library_ms=0.0, bound_ms=0.0, repeated_bound_ms=0.0)
+    calls = {}
+    for case, S, draw in (("A", 256, 128), ("V", 128, 1024)):
+        qe = torch.randn(Bc, G, draw, generator=g, device=dev) * 0.05
+        mem = torch.randn(Bc, S, draw, generator=g, device=dev).to(
+            torch.bfloat16)
+        lens = torch.randint(1, S + 1, (Bc,), generator=g, device=dev)
+        mask = (torch.arange(S, device=dev)[None] < lens[:, None])
+        mask[Bc - 1] = False
+        mask = mask.to(torch.int32)
+        if att.folded_route(mem.dtype, draw) != "tc":
+            raise AssertionError("the beam shape left the tensor-core route")
+        got = att.folded_attend(qe, mem, mask, scale)
+        want = att.folded_attend_plain(qe, mem, mask, scale)
+        torch.cuda.synchronize()
+        e = check_close(f"folded beam {case}", got, want, 1e-4)
+        e = max(e, check_close(f"folded beam {case} masked row = mean(mem)",
+                               got[Bc - 1], mem[Bc - 1].float().mean(0)
+                               .expand(G, -1), 1e-4))
+        K["folded_tc"].err(e)
+        # the same queries with the memory repeated per beam
+        q_rep = qe.reshape(Bc * W, G // W, draw)
+        mem_rep = mem.repeat_interleave(W, 0)
+        mask_rep = mask.repeat_interleave(W, 0)
+        e_rep = check_close(f"folded beam {case} repeated layout",
+                            att.folded_attend(q_rep, mem_rep, mask_rep,
+                                              scale).reshape(Bc, G, draw),
+                            got, 1e-4)
+        ms, _, pms, lms, nbytes, ops = folded_times(qe, mem, mask, scale)
+        rms, _, _, _, rbytes, _ = folded_times(q_rep, mem_rep, mask_rep,
+                                               scale)
+        # folded_split counts clips only (tuned at G = 8): the shared call
+        # also at one block per clip and query chunk, as the repeated one
+        with mock.patch.object(att, "folded_split", lambda B, S: 1):
+            ms_split1 = folded_times(qe, mem, mask, scale)[0]
+        bms, by = bound_ms(nbytes, ops, "f32")
+        rbms, _ = bound_ms(rbytes, ops, "f32")
+        calls[case] = {"S": S, "draw": draw, "split": att.folded_split(Bc, S),
+                       "repeated_split": att.folded_split(Bc * W, S),
+                       "max_abs_err": e, "repeated_vs_shared_err": e_rep,
+                       "kernel_ms": ms, "split1_ms": ms_split1,
+                       "repeated_ms": rms, "plain_ms": pms,
+                       "library_ms": lms, "bytes": nbytes,
+                       "repeated_bytes": rbytes, "bound_ms": bms,
+                       "bound_by": by, "repeated_bound_ms": rbms}
+        emit({"kernel": "folded_attend_tc", "case": f"beam {case}",
+              "clips": Bc, "G": G, **calls[case]})
+        for key, v in (("kernel_ms", ms), ("split1_ms", ms_split1),
+                       ("repeated_ms", rms),
+                       ("plain_ms", pms), ("library_ms", lms),
+                       ("bound_ms", bms), ("repeated_bound_ms", rbms)):
+            pair[key] += v
+        del qe, mem, mask, q_rep, mem_rep, mask_rep
+    emit({"kernel": "folded_attend_tc", "case": "beam A + V pair",
+          "clips": Bc, "G": G, **pair})
+    K["folded_tc"].rec["beam_W4_B64_pair"] = pair
+
+
+def syncs_per_token(run):
+    """Host syncs per generated token of ``run(max_len)``: the device syncs
+    that ``torch.cuda.set_sync_debug_mode`` reports in a 30-token run less
+    those of a 10-token run, over 20 (the set-up's own syncs cancel)."""
+    import torch
+
+    def syncs(max_len):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run(max_len)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        where = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                at = f"{os.path.basename(w.filename)}:{w.lineno}"
+                where[at] = where.get(at, 0) + 1
+        return where
+
+    # the fewer of two runs each: a first call may sync once more (lazy
+    # set-up in torch), which is not a per-token sync
+    long, short = (min((syncs(n) for _ in range(2)),
+                       key=lambda w: sum(w.values())) for n in (30, 10))
+    return ((sum(long.values()) - sum(short.values())) / 20,
+            {at: n - short.get(at, 0) for at, n in long.items()
+             if n != short.get(at, 0)})
+
+
+def throughput(run, clips, **what):
+    """Median clips/s of 3 timed run() calls after one warm-up."""
+    import torch
+
+    run()
+    samples = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        samples.append(clips / (time.perf_counter() - t))
+    emit({"phase": "throughput", **what, "Sv": 128, "Sa": 256,
+          "max_len": 30, "clips_per_s": statistics.median(samples),
+          "samples": samples})
+
+
+def phase_decode_modes(K, model):
+    """Every decode mode: the small f32 model card vs CPU; the flagship
+    (``model``) serving with beam search and with sampling (each a main
+    path: launch counts zeroed just before and read just after), the
+    sampled, beam and full-buffer checks, K3 at the beam shape, and
+    throughput of beam, sampled and full-buffer decode."""
+    import torch
+
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD, SPECIALS
+    from bmhrl_tpu_torch.models.blocks import Draws
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.serve import CaptionServer
+    from bmhrl_tpu_torch.train.decode import beam_decode, decode
+
+    small_modes_card_vs_cpu()
+    itos = SPECIALS + [f"w{i}" for i in range(VOC - 4)]
+    options = {"beam": dict(beam_width=4, length_penalty=1.0),
+               "sample": dict(sample=True, temperature=0.8, top_p=0.9,
+                              sample_seed=0)}
+    with tempfile.TemporaryDirectory() as root:
+        vdir, adir, reqs = write_requests(root)
+        cfg = Config().replace(video_features_path=vdir,
+                               audio_features_path=adir)
+        captions = {}
+        for mode, opts in options.items():
+            server = CaptionServer(cfg, model, itos, device="cuda", **opts)
+            server.caption(reqs[:3], batch_size=32)  # warm-up
+            server = CaptionServer(cfg, model, itos, device="cuda", **opts)
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            preds, stats = server.caption(reqs, batch_size=32)
+            torch.cuda.synchronize()
+            launches = dict(_cuda.LAUNCHES)
+            sents = [s["sentence"] for segs in preds["results"].values()
+                     for s in segs]
+            captions[mode] = sents
+            emit({"phase": "decode_modes", "serve": mode, "options": opts,
+                  "requests": len(reqs), "answered": len(sents),
+                  "empty": sum(1 for s in sents if not s),
+                  "stats": stats.summary(), "launches": launches,
+                  "example": sents[:3]})
+            if len(sents) != len(reqs) or not all(sents):
+                raise AssertionError(f"{mode} serve: a request got no "
+                                     "sentence")
+            for name in ("flash_attention_simt", "folded_attend_simt"):
+                if launches.pop(name):
+                    raise AssertionError(f"the bf16 {mode} serve took the "
+                                         f"CUDA-core route {name}")
+            for name, n in launches.items():
+                K[name].rec[f"launches_{mode}_serve"] = n
+                if n <= 0:
+                    raise AssertionError(f"{name} never launched in the "
+                                         f"{mode} serve")
+        again, _ = CaptionServer(cfg, model, itos, device="cuda",
+                                 **options["sample"]).caption(reqs,
+                                                              batch_size=32)
+    repeat = [s["sentence"] for segs in again["results"].values()
+              for s in segs] == captions["sample"]
+    emit({"phase": "decode_modes", "check": "sampled serve repeats with "
+          "its seed", "identical": repeat,
+          "differs_from_beam": sum(a != b for a, b in zip(
+              captions["sample"], captions["beam"]))})
+    if not repeat:
+        raise AssertionError("two sampled serves with one seed differ")
+
+    # the flagship's decode checks at the bench's shapes (B=64 clips,
+    # Sv=128, Sa=256, 30 tokens)
+    feats = make_feats(64, 128, 256, 1024, 128, "cuda", seed=13)
+    masks = make_masks(feats)
+    args = (model, feats, masks, 30, BOS)
+    greedy, _ = decode(*args, -1, PAD)
+    top1, _ = decode(*args, -1, PAD, greedy=False, draws=Draws(1, "cuda"),
+                     top_k=1)
+    beam1, _ = beam_decode(*args, -1, PAD, beam_width=1)
+    beam1_agree = int((beam1 == greedy)[:, 1:].sum())
+    beam4, scores = beam_decode(*args, EOS, PAD, beam_width=4)
+    # the step at the beam's own row layout is the gate; the greedy
+    # layout's GEMMs of another shape round bf16 otherwise, which the
+    # report shows beside it
+    gap = score_gap(model, feats, masks, beam4, scores, EOS, 4)
+    gap_greedy_layout = score_gap(model, feats, masks, beam4, scores, EOS, 1)
+    fast, _ = decode(*args, -1, PAD)
+    forced, launches = full_buffer_forced(model, feats, masks, fast)
+    per_token = launches["flash_attention_tc"] / 30
+    checks = {"sampled_top_k_1_eq_greedy": bool(torch.equal(top1, greedy)),
+              "beam1_tokens_equal_greedy": beam1_agree,
+              "beam1_tokens": greedy[:, 1:].numel(),
+              "beam4_score_max_abs_gap": gap, "score_tol": 2e-2,
+              "beam4_score_gap_greedy_layout": gap_greedy_layout,
+              "full_buffer_forced_agreement": forced, "min_required": 0.95,
+              "full_buffer_flash_tc_per_token": per_token,
+              "full_buffer_step_launches": launches}
+    emit({"phase": "decode_modes", "check": "flagship", "B": 64,
+          "dtype": "bf16", **checks})
+    if not checks["sampled_top_k_1_eq_greedy"]:
+        raise AssertionError("top_k=1 sampling differs from greedy")
+    if beam1_agree < 0.99 * greedy[:, 1:].numel():
+        raise AssertionError(f"beam W=1 agrees with greedy on only "
+                             f"{beam1_agree} tokens")
+    if not gap <= 2e-2:
+        raise AssertionError(f"beam scores off the summed log-probs by "
+                             f"{gap}")
+    if forced < 0.95 or per_token != 8:
+        raise AssertionError(f"full-buffer step: agreement {forced}, "
+                             f"{per_token} flash launches per token")
+    K["flash_tc"].rec["full_buffer_per_token"] = per_token
+    # each loop syncs the host once per token (its done.all()); no gather,
+    # filter or draw may add one
+    f8 = make_feats(8, 128, 256, 1024, 128, "cuda", seed=8)
+    m8 = make_masks(f8)
+    syncs = {
+        "greedy": syncs_per_token(lambda n: decode(
+            model, f8, m8, n, BOS, -1, PAD)),
+        "sampled": syncs_per_token(lambda n: decode(
+            model, f8, m8, n, BOS, -1, PAD, greedy=False,
+            draws=Draws(2, "cuda"), top_k=5, top_p=0.9)),
+        "beam": syncs_per_token(lambda n: beam_decode(
+            model, f8, m8, n, BOS, -1, PAD, beam_width=4)),
+        "full_buffer_explore": syncs_per_token(lambda n: decode(
+            model, f8, m8, n, BOS, -1, PAD, exploration=True,
+            draws=Draws(3, "cuda"))),
+        "full_buffer_beam": syncs_per_token(lambda n: beam_decode(
+            model, f8, m8, n, BOS, -1, PAD, beam_width=4, use_fast=False))}
+    emit({"phase": "decode_modes", "check": "host syncs per token",
+          "B": 8, "per_token": {k: v[0] for k, v in syncs.items()},
+          "extra_syncs_of_20_tokens_by_line": {k: v[1]
+                                               for k, v in syncs.items()}})
+    if any(v[0] != 1 for v in syncs.values()):
+        raise AssertionError(f"host syncs per token: {syncs}")
+    del feats, masks, f8, m8
+
+    folded_beam_shape(K)
+
+    # throughput at the bench's shapes, 30 tokens, no early stop
+    f64 = make_feats(64, 128, 256, 1024, 128, "cuda", seed=64)
+    m64 = make_masks(f64)
+    throughput(lambda: beam_decode(model, f64, m64, 30, BOS, -1, PAD,
+                                   beam_width=4), 64, mode="beam W=4",
+               B=64)
+    del f64, m64
+    f256 = make_feats(256, 128, 256, 1024, 128, "cuda", seed=256)
+    m256 = make_masks(f256)
+    draws = Draws(0, "cuda")
+    throughput(lambda: decode(model, f256, m256, 30, BOS, -1, PAD,
+                              greedy=False, draws=draws, temperature=0.8,
+                              top_p=0.9), 256, mode="sampled", B=256)
+    del f256, m256
+    f32 = make_feats(32, 128, 256, 1024, 128, "cuda", seed=32)
+    m32 = make_masks(f32)
+    throughput(lambda: decode(model, f32, m32, 30, BOS, -1, PAD,
+                              use_fast=False), 32,
+               mode="full-buffer greedy", B=32)
+
+
 def device_groups(prof):
     """Device ms and launches of a profile by group: each kernel of csrc/,
     cuBLAS/CUTLASS GEMMs, everything else."""
@@ -843,35 +1283,44 @@ def device_groups(prof):
     return groups, counts
 
 
-def profile_decode(model, B=256):
-    """Device time of one greedy decode (B=256, Sv=128, Sa=256, 30 tokens)
-    by kernel group, and the device's busy share of the wall time."""
+def profile_decode(model, B=256, beam_width=0):
+    """Device time of one greedy decode (B=256, Sv=128, Sa=256, 30 tokens;
+    with ``beam_width``, a beam decode of B clips) by kernel group, and
+    the device's busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from bmhrl_tpu_torch.data.vocab import BOS, PAD
     from bmhrl_tpu_torch.ops.masking import make_masks
-    from bmhrl_tpu_torch.train.decode import decode
+    from bmhrl_tpu_torch.train.decode import beam_decode, decode
 
     feats = make_feats(B, 128, 256, 1024, 128, "cuda", seed=11)
     masks = make_masks(feats)
-    decode(model, feats, masks, 30, BOS, -1, PAD)
+
+    def run():
+        if beam_width:
+            return beam_decode(model, feats, masks, 30, BOS, -1, PAD,
+                               beam_width=beam_width)
+        return decode(model, feats, masks, 30, BOS, -1, PAD)
+
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode(model, feats, masks, 30, BOS, -1, PAD)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, counts = device_groups(prof)
     busy = sum(groups.values())
     # the bf16 decode takes the tensor-core folded route: one launch per
-    # branch, layer and token
+    # branch, layer and token, for all beams of a clip
     folded_per_batch = 2 * model.att_layers * 30
     if busy and (counts["folded_tc_kernel"] != folded_per_batch
                  or counts["folded_kernel"]):
         raise AssertionError(f"folded launches in a decode: {counts}")
-    emit({"phase": "profile", "B": B, "Sv": 128, "Sa": 256, "tokens": 30,
+    emit({"phase": "profile", "B": B, "beam_width": beam_width or None,
+          "Sv": 128, "Sa": 256, "tokens": 30,
           "wall_ms": wall_ms, "device_ms": groups, "device_busy_ms": busy,
           "device_idle_share": (1 - busy / wall_ms) if busy else None,
           "device_launches": sum(counts.values()),
@@ -1025,23 +1474,11 @@ def train_card_vs_cpu():
     Losses within 1e-4 relative, every parameter within 1e-5."""
     import torch
 
-    from bmhrl_tpu_torch.models.blocks import Draws
-
-    class HostDraws(Draws):
-        """Draws from generators on the CPU, each copied to ``device``, so
-        the card's run takes the CPU run's draws."""
-
-        def __init__(self, seed, device):
-            super().__init__(seed, "cpu")
-            self.target = torch.device(device)
-
-        def _draw(self, fn, stream, *args):
-            return super()._draw(fn, stream, *args).to(self.target)
-
     out = {}
     score = torch.from_numpy(np.random.RandomState(5).rand(4, 8)
                              .astype(np.float32))
     for device in ("cuda", "cpu"):
+        HostDraws = host_draws_class()
         sf, state = build_trainer(dict(SMALL, dtype=torch.float32), device,
                                   seed=3)
         batch = make_train_batch(4, 128, 160, Lc=8, voc=SMALL["voc_size"],
@@ -1463,10 +1900,12 @@ def main() -> int:
     phases = (("kernels", lambda: phase_kernels(K)),
               ("reference", lambda: phase_reference(K)),
               ("serve", lambda: made.update(serve=phase_serve(K))),
+              ("decode_modes", lambda: phase_decode_modes(K, made["serve"])),
               ("train", lambda: made.update(train=phase_train(K))),
               # the profiler runs last: once it has traced, the host
               # launches more slowly
               ("profile", lambda: (profile_decode(made["serve"]),
+                                   profile_decode(made["serve"], 64, 4),
                                    profile_train(*made["train"]))))
     for name, phase in phases:
         t0 = time.perf_counter()

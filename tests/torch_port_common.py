@@ -5,13 +5,16 @@ loaded into both packages.
 Both packages get the same inputs, made with numpy from a seed; the port
 runs on the CPU, where every kernel wrapper takes its plain version."""
 import contextlib
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from bmhrl_tpu.ops import attention as jfused
+from bmhrl_tpu_torch.models.blocks import Draws
 
 # d_k = 256 / 2 = 128 passes the flash gate; draw = 128 passes the folded
 # gate; Sv = 128 and Sa = 160 (not a multiple of 128) reach the flash kernel
@@ -41,6 +44,19 @@ def jax_kernels(flash=True, folded=True):
         yield
     finally:
         set_toggles(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a module's port ops on one CPU thread, restored afterwards. The
+    tests' tensors are small, and the test workers share the cores: a
+    parallel op whose threads wait on each other across busy cores runs
+    up to 100x slower than on one thread. A test module takes it with
+    ``from torch_port_common import one_torch_thread``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_tree(tree):
@@ -75,3 +91,55 @@ def features(seed=0, b=B, sv=SV, sa=SA, dv=128, da=128):
 
 def to_torch(d):
     return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+
+
+class RecordingDraws(Draws):
+    """CPU ``Draws`` that keeps a copy of every draw, by stream, in order
+    (``drawn["sample"]``: the sampled steps' uniforms; ``drawn["noise"]``:
+    the exploration normals)."""
+
+    def __init__(self, seed=0):
+        super().__init__(seed, "cpu")
+        self.drawn = {s: [] for s in self.STREAMS}
+
+    def _draw(self, fn, stream, *args):
+        x = super()._draw(fn, stream, *args)
+        self.drawn[stream].append(x.numpy().copy())
+        return x
+
+
+@contextlib.contextmanager
+def fed_jax_draws(uniforms=(), normals=()):
+    """Inside: ``jax.random.categorical`` samples as the port's
+    ``Draws.categorical`` does from the next of ``uniforms``, and
+    ``jax.random.normal`` returns the next of ``normals``. The JAX decode
+    loops draw inside a jitted ``lax.while_loop`` whose body is traced
+    once, so each array is popped by an ordered ``io_callback`` at run
+    time, one per iteration. The jit caches are cleared on entry and exit
+    (a cached trace would keep the real draws); all arrays must be used."""
+    from jax.experimental import io_callback
+
+    queues = {"u": [np.asarray(u, np.float32) for u in uniforms],
+              "n": [np.asarray(n, np.float32) for n in normals]}
+
+    def fed(name, shape):
+        return io_callback(lambda: queues[name].pop(0),
+                           jax.ShapeDtypeStruct(tuple(shape), jnp.float32),
+                           ordered=True)
+
+    def categorical(key, logits, axis=-1, shape=None, replace=True):
+        u = jnp.maximum(fed("u", logits.shape), jnp.finfo(jnp.float32).tiny)
+        return jnp.argmax(logits - jnp.log(-jnp.log(u)), axis=axis)
+
+    def normal(key, shape=(), dtype=jnp.float32):
+        return fed("n", shape).astype(dtype)
+
+    jax.clear_caches()
+    try:
+        with mock.patch.object(jax.random, "categorical", categorical), \
+                mock.patch.object(jax.random, "normal", normal):
+            yield
+    finally:
+        jax.clear_caches()
+    assert not queues["u"] and not queues["n"], {
+        k: len(v) for k, v in queues.items()}
