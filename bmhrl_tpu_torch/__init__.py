@@ -1,6 +1,9 @@
-"""PyTorch/CUDA port of bmhrl_tpu for NVIDIA Hopper: greedy serving of the
-bimodal hierarchical captioner and its training steps
-(``train.steps.StepFactory``).
+"""PyTorch/CUDA port of bmhrl_tpu for NVIDIA Hopper: caption serving
+(greedy, beam search and sampling; ``serve.CaptionServer`` and the CLIs
+``cli.serve_captions`` and ``cli.single_video``, with weights from a
+reference ``.pt``, ``utils.checkpoint``) of the bimodal hierarchical
+captioner (BMHRL) and its unimodal ablations (AHRL, VHRL), and their
+training steps (``train.steps.StepFactory``).
 
 The JAX package ``bmhrl_tpu`` is the reference and is never imported here.
 Entry points take a ``device`` argument: ``"cuda"`` by default (an error

@@ -1,0 +1,153 @@
+"""Batch-captioning serving CLI of the PyTorch/CUDA port: caption every
+proposal in a JSON or TSV (the port of cli/serve_captions.py, flag for
+flag).
+
+    python -m bmhrl_tpu_torch.cli.serve_captions \\
+        --proposals data/val_1_no_missings.json \\
+        --video_features_path DIR --audio_features_path DIR \\
+        --train_meta_path ./data/train.csv \\
+        --torch_checkpoint bm_hrl_agent.pt --out submission.json \\
+        [--batch_size 256] [--device cuda]
+
+Weights come from a reference-layout ``.pt`` (``--torch_checkpoint``; the
+JAX package writes one from a trained tree with its
+``export_torch_bmhrl``); without one the model has random weights.
+``--checkpoint_dir`` (orbax), ``--mesh`` > 1 and the AOT bundle flags are
+not ported yet and exit with a message. Prints one JSON stats line
+(clips/s, latency percentiles, shape count) and returns the stats.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+NOT_PORTED = {
+    "checkpoint_dir": "--checkpoint_dir is not ported yet: orbax "
+                      "checkpoints need JAX. Export the trained weights as a "
+                      "reference .pt with the JAX package's "
+                      "bmhrl_tpu.utils.checkpoint.export_torch_bmhrl and pass "
+                      "--torch_checkpoint",
+    "mesh": "--mesh > 1 is not ported yet: the port serves on one card",
+    "export_bundle": "--export_bundle is not ported yet",
+    "from_bundle": "--from_bundle is not ported yet",
+}
+
+
+def refuse_unported(args) -> None:
+    """Exit with a "not ported yet" message for a flag the port lacks."""
+    for flag, msg in NOT_PORTED.items():
+        value = getattr(args, flag, None)
+        if value is not None and (flag != "mesh" or value > 1):
+            raise SystemExit(msg)
+
+
+def load_captioner(cfg, voc_size: int, torch_checkpoint, device):
+    """The captioner of ``cfg.mode`` on ``device``, in eval mode: weights
+    from a reference ``.pt`` (BMHRL only, as in the JAX CLIs) or random
+    ones from seed 0 with the flax initialisers' scales."""
+    from bmhrl_tpu_torch.train.loop import build_model
+    from bmhrl_tpu_torch.utils.checkpoint import import_torch_bmhrl
+    from bmhrl_tpu_torch.weights import load_jax_params, random_module_params
+
+    model = build_model(cfg, voc_size, device)
+    if torch_checkpoint:
+        if cfg.mode != "BMHRL":
+            raise SystemExit(f"--torch_checkpoint unsupported for {cfg.mode}")
+        tree = import_torch_bmhrl(torch_checkpoint, cfg.rl_att_layers)
+    else:
+        tree = random_module_params(model, seed=0)
+    return load_jax_params(model, tree).eval().requires_grad_(False)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="Batch caption serving "
+                                            "(PyTorch/CUDA port)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--proposals", help="ANet-format proposals JSON")
+    src.add_argument("--meta", help="reference meta TSV (captions ignored)")
+    p.add_argument("--durations_json", default=None,
+                   help="video durations ({vid: seconds} or ANet JSON); "
+                        "required when --proposals is a submission-style "
+                        "file (those carry no durations)")
+    p.add_argument("--video_features_path", required=True)
+    p.add_argument("--audio_features_path", required=True)
+    p.add_argument("--train_meta_path", default="./data/train.csv",
+                   help="vocab source (must match training)")
+    p.add_argument("--glove_path", default=None)
+    p.add_argument("--checkpoint_dir", default=None,
+                   help="orbax TrainState dir (not ported yet)")
+    p.add_argument("--torch_checkpoint", default=None,
+                   help="reference bm_hrl_agent.pt; random init if omitted")
+    p.add_argument("--mode", default="BMHRL",
+                   choices=["BMHRL", "DETR", "AHRL", "VHRL"])
+    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--beam_width", type=int, default=1,
+                   help="beam-search width (1 = greedy); quality knob")
+    p.add_argument("--length_penalty", type=float, default=0.0,
+                   help="GNMT length-normalization exponent for beam rank")
+    p.add_argument("--sample", action="store_true", default=False,
+                   help="stochastic decode instead of greedy/beam")
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--top_k", type=int, default=0,
+                   help="sampling truncation: keep the k best tokens")
+    p.add_argument("--top_p", type=float, default=0.0,
+                   help="nucleus sampling mass (0 = off)")
+    p.add_argument("--sample_seed", type=int, default=0)
+    p.add_argument("--max_len", type=int, default=30)
+    p.add_argument("--mesh", type=int, default=1,
+                   help="data-parallel mesh size (only 1 is ported)")
+    p.add_argument("--io_threads", type=int, default=8)
+    p.add_argument("--compute_dtype", default="bfloat16")
+    p.add_argument("--config_json", default=None,
+                   help="JSON dict of extra Config overrides "
+                        '(e.g. \'{"d_model": 64}\' for ablation models)')
+    p.add_argument("--export_bundle", default=None,
+                   help="AOT export of the decode (not ported yet)")
+    p.add_argument("--from_bundle", default=None,
+                   help="serve from an AOT bundle (not ported yet)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (the kernels) or cpu (their "
+                        "plain versions)")
+    p.add_argument("--out", required=True, help="submission JSON path")
+    args = p.parse_args(argv)
+    refuse_unported(args)
+
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import build_vocab_from_tsv
+    from bmhrl_tpu_torch.serve import (CaptionServer, read_durations_json,
+                                       read_meta_tsv, read_proposals_json)
+
+    durations = (read_durations_json(args.durations_json)
+                 if args.durations_json else None)
+    reqs = (read_proposals_json(args.proposals, durations)
+            if args.proposals else read_meta_tsv(args.meta))
+    print(f"{len(reqs)} clip requests")
+
+    overrides = json.loads(args.config_json) if args.config_json else {}
+    cfg = Config(
+        mode=args.mode, train_meta_path=args.train_meta_path,
+        glove_path=args.glove_path, max_len=args.max_len,
+        compute_dtype=args.compute_dtype, to_log=False,
+        video_features_path=args.video_features_path,
+        audio_features_path=args.audio_features_path,
+        mesh_shape=(args.mesh, 1), **overrides)
+    vocab = build_vocab_from_tsv(cfg.train_meta_path, cfg.min_freq_caps,
+                                 cfg.glove_path, cfg.d_model_caps)
+    model = load_captioner(cfg, len(vocab), args.torch_checkpoint,
+                           args.device)
+    server = CaptionServer(cfg, model, vocab.itos, device=args.device,
+                           beam_width=args.beam_width,
+                           length_penalty=args.length_penalty,
+                           sample=args.sample, temperature=args.temperature,
+                           top_k=args.top_k, top_p=args.top_p,
+                           sample_seed=args.sample_seed)
+    predictions, stats = server.caption(reqs, batch_size=args.batch_size,
+                                        io_threads=args.io_threads)
+    with open(args.out, "w") as f:
+        json.dump(predictions, f)
+    print(json.dumps(stats.summary()))
+    return stats
+
+
+if __name__ == "__main__":
+    main()

@@ -63,8 +63,14 @@
 //     at draw 1024 (2 blocks per SM) and 72,800 at draw 128 (3 per SM).
 //
 // folded_kernel, f32 memory and any other width: the first version of this
-// kernel (one block per clip, f32 tiles in shared memory, CUDA cores), q
-// pre-scaled by the wrapper.
+// kernel (f32 tiles in shared memory, CUDA cores), q pre-scaled by the
+// wrapper. A block serves one chunk of at most GC queries of one clip (grid
+// (B, ceil(G / GC))), so its shared memory does not grow with G: GC is the
+// largest power of two up to 64 whose block fits kMaxSmem at the memory's
+// width (simt_chunk; ops/attention.py folded_simt_chunk, 16 at draw 1024,
+// 64 at draw 128). Each chunk reads the clip's memory again, from L2 when
+// the chunks run together. G <= GC (every call of the f32 greedy decode)
+// is one chunk, as before.
 #include <cooperative_groups.h>
 
 #include "async_mma.cuh"
@@ -79,18 +85,35 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// keys per tile: the staged f32 tile stays at or under 64 KB
+int simt_tile(int draw) {
+  const int BS = 16384 / draw;
+  return BS > 64 ? 64 : (BS < 1 ? 1 : BS);
+}
+
+// shared memory of a block serving G queries
 size_t smem_bytes(int G, int draw, int BS) {
   return sizeof(float) * (2 * static_cast<size_t>(G) * draw +
                           static_cast<size_t>(BS) * draw + G * BS + 3 * G) +
          sizeof(int) * BS;
 }
 
+// queries per block: the largest of 64, 32, ..., 1 whose block fits; 0
+// when none does
+int simt_chunk(int draw) {
+  for (int gc = 64; gc >= 1; gc /= 2)
+    if (smem_bytes(gc, draw, simt_tile(draw)) <= bmhrl::kMaxSmem) return gc;
+  return 0;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     folded_kernel(const float* __restrict__ q, const T* __restrict__ mem,
                   const int* __restrict__ mask, float* __restrict__ out,
-                  int G, int S, int draw, int BS) {
+                  int G_all, int GC, int S, int draw, int BS) {
   extern __shared__ __align__(16) float smem[];
+  const int g0 = blockIdx.y * GC;
+  const int G = min(GC, G_all - g0);      // queries of this block
   float* qs = smem;                       // G x draw
   float* acc = qs + G * draw;             // G x draw
   float* tile = acc + G * draw;           // BS x draw
@@ -102,7 +125,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t b = blockIdx.x;
-  const float* qb = q + b * G * draw;
+  const float* qb = q + (b * G_all + g0) * draw;
   const T* memb = mem + b * S * draw;
   const int* mb = mask + b * S;
 
@@ -168,7 +191,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  float* ob = out + b * G * draw;
+  float* ob = out + (b * G_all + g0) * draw;
   for (int i = tid; i < G * draw; i += kThreads)
     ob[i] = acc[i] / fmaxf(l_s[i / draw], 1e-30f);
 }
@@ -469,16 +492,20 @@ int launch(const float* q, const void* mem, const int* mask, float* out,
 }  // namespace
 
 // q: (B, G, draw) f32 pre-scaled; mem: (B, S, draw) f32 or bf16; mask:
-// (B, S) int32; out: (B, G, draw) f32. All contiguous.
+// (B, S) int32; out: (B, G, draw) f32. All contiguous. chunk: queries per
+// block, which must be simt_chunk(draw) (ops/attention.py:
+// folded_simt_chunk).
 extern "C" int bmhrl_folded_attend(int dtype, const float* q, const void* mem,
                                    const int* mask, float* out, int B, int G,
-                                   int S, int draw, void* stream) {
-  if (B <= 0 || G <= 0 || S <= 0 || draw <= 0) return cudaErrorInvalidValue;
-  // keys per tile: the staged tile stays at or under 64 KB
-  int BS = 16384 / draw;
-  BS = BS > 64 ? 64 : (BS < 1 ? 1 : BS);
-  const size_t smem = smem_bytes(G, draw, BS);
-  if (smem > bmhrl::kMaxSmem) return cudaErrorInvalidValue;
+                                   int S, int draw, int chunk, void* stream) {
+  if (B <= 0 || G <= 0 || S <= 0 || draw <= 0 || chunk <= 0 ||
+      chunk != simt_chunk(draw))
+    return cudaErrorInvalidValue;
+  const int chunks = (G + chunk - 1) / chunk;
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  const int BS = simt_tile(draw);
+  const size_t smem = smem_bytes(G < chunk ? G : chunk, draw, BS);
+  const dim3 grid(B, chunks);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == bmhrl::kF32) {
@@ -486,15 +513,16 @@ extern "C" int bmhrl_folded_attend(int dtype, const float* q, const void* mem,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    folded_kernel<float><<<B, kThreads, smem, st>>>(
-        q, static_cast<const float*>(mem), mask, out, G, S, draw, BS);
+    folded_kernel<float><<<grid, kThreads, smem, st>>>(
+        q, static_cast<const float*>(mem), mask, out, G, chunk, S, draw, BS);
   } else if (dtype == bmhrl::kBF16) {
     err = cudaFuncSetAttribute(folded_kernel<__nv_bfloat16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    folded_kernel<__nv_bfloat16><<<B, kThreads, smem, st>>>(
-        q, static_cast<const __nv_bfloat16*>(mem), mask, out, G, S, draw, BS);
+    folded_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
+        q, static_cast<const __nv_bfloat16*>(mem), mask, out, G, chunk, S,
+        draw, BS);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -1,8 +1,9 @@
 """BMHRL agent and its two value functions (the port of
 bmhrl_tpu/models/bmhrl.py): bimodal encoder, the two fusion decoder stacks,
 the Manager's goals and the Worker's vocabulary head, both teacher-forced
-over a whole caption (``BMHrlAgent.forward``, training) and stepped one
-token at a time (the decode).
+over a whole caption (``forward``, training) and stepped one token at a
+time (the decode). ``HierarchicalAgent`` holds what the bimodal agent
+shares with the unimodal one (``models.unimodal``).
 
 Module and parameter names follow the JAX package's param tree
 (``weights.load_jax_params`` maps one onto the other). A training forward
@@ -294,61 +295,29 @@ class Worker(nn.Module):
         return torch.log_softmax(self.projection(h.float())[:, 0], dim=-1)
 
 
-class BMHrlAgent(nn.Module):
-    """Bimodal hierarchical captioner. Defaults are the flagship's:
-    vocabulary given, d_model 1024, 4 heads, 2 layers, d_caps 300, dropout
-    0.1, bf16 compute. Parameters are f32 on ``device`` ("cuda" by default;
-    "cpu" runs the kernels' plain versions; "meta" builds shapes only)."""
+class HierarchicalAgent(nn.Module):
+    """What the two families of hierarchical captioner share (the bimodal
+    ``BMHrlAgent`` and the unimodal ``models.unimodal.UnimodalAgent``): the
+    frozen critic's segment labels, the Manager's goals and the Worker's
+    vocabulary head over the two fusion stacks' features, teacher-forced
+    (``forward``) or stepped one token at a time (the decode). A subclass
+    builds ``emb_C``, ``pos_enc_C``, ``critic``, ``manager`` and
+    ``worker`` and gives its encoder and fusion stacks:
 
-    def __init__(self, voc_size: int, d_video: int = 1024, d_audio: int = 128,
-                 d_model: int = 1024, d_model_caps: int = 300,
-                 att_heads: int = 4, att_layers: int = 2, dout_p: float = 0.1,
-                 d_goal: int = 64, d_ff_v: int = 1024, d_ff_a: int = 512,
-                 d_ff_c: int = 2048, critic_score_threshold: float = 0.25,
-                 dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
-                 device="cuda"):
-        super().__init__()
-        if torch.device(device).type != "meta":
-            device = resolve_device(device)
-        self.voc_size = voc_size
-        self.d_model = d_model
-        self.d_model_caps = d_model_caps
-        self.att_heads = att_heads
-        self.att_layers = att_layers
-        self.critic_score_threshold = critic_score_threshold
-        self.dtype = dtype
-        # d_ff_c sizes the feed-forward the reference builds in each fusion
-        # layer but never applies; kept for the JAX package's signature
-        self.d_ff_c = d_ff_c
-        self.pos_enc_A = PositionalEncoder(d_audio, dout_p, device)
-        self.pos_enc_V = PositionalEncoder(d_video, dout_p, device)
-        self.pos_enc_C = PositionalEncoder(d_model_caps, dout_p, device)
-        self.critic = SegmentCritic(d_model_caps, device)
-        self.emb_C = VocabularyEmbedder(voc_size, d_model_caps, device)
-        self.bm_enc = BMEncoder(
-            att_layers, d_model_M1=d_video, d_model_M2=d_audio,
-            d_model=d_model, d_ff_M1=d_ff_v, d_ff_M2=d_ff_a, H=att_heads,
-            dtype=dtype, use_flash=use_flash, device=device, dout_p=dout_p)
-        fus = dict(d_model_A=d_audio, d_model_V=d_video,
-                   d_model_C=d_model_caps, d_model=d_model, H=att_heads,
-                   dtype=dtype, device=device, use_flash=use_flash,
-                   dout_p=dout_p)
-        self.bm_worker_fus = BMFusion(att_layers, **fus)
-        self.bm_manager_fus = BMFusion(att_layers, **fus)
-        self.manager = Manager(d_model_caps, d_goal, device, dout_p)
-        self.worker = Worker(voc_size, d_model_caps, d_goal, d_model, dtype,
-                             device, dout_p)
+    - ``encode(V, A, masks, draws)`` -> (Va, Av) memories;
+    - ``fusion_features(C, Va, Av, masks, drop, kv)`` -> (worker features,
+      manager features) of a whole caption;
+    - ``precompute_fusion_kv(Va, Av)``: the stacks' cross-attention
+      keys/values, once per decode;
+    - ``fusion_layer(s, i)``: layer i of stack s (0 worker, 1 manager), with
+      ``step_weights``, ``step_mem_pre`` and ``step_mem_post``;
+    - ``decode_memories(Va, Av, masks)``: the memories the token step
+      attends, in the order of ``step_mem_pre``'s effective queries, each
+      with its (B, S) int32 key mask."""
 
     @property
     def device(self) -> torch.device:
         return self.emb_C.embedding.weight.device
-
-    def encode(self, V, A, masks, draws: Optional[Draws] = None):
-        """(B, Sv, d_video), (B, Sa, d_audio) features -> (Va, Av) memories
-        in the compute dtype. ``draws``: dropout draws (None: none)."""
-        V = self.pos_enc_V(V.to(self.dtype), draws)
-        A = self.pos_enc_A(A.to(self.dtype), draws)
-        return self.bm_enc(V, A, masks["V_mask"], masks["A_mask"], draws)
 
     def segment_labels_of(self, C_emb: torch.Tensor) -> torch.Tensor:
         """(B, L, Dc) caption embeddings -> (B, L) int32 segment labels of
@@ -365,8 +334,8 @@ class BMHrlAgent(nn.Module):
         drop = None if deterministic else draws
         labels = self.segment_labels_of(C_emb)
         C = self.pos_enc_C(C_emb, drop).to(self.dtype)
-        worker_feat = self.bm_worker_fus(C, Av, Va, masks, drop)
-        manager_feat = self.bm_manager_fus(C, Av, Va, masks, drop)
+        worker_feat, manager_feat = self.fusion_features(C, Va, Av, masks,
+                                                         drop)
         goals = self.manager(manager_feat, labels, exploration, drop, draws)
         pred = self.worker(worker_feat, goals, masks["C_mask"], drop)
         return pred, worker_feat, manager_feat, goals, labels
@@ -399,12 +368,6 @@ class BMHrlAgent(nn.Module):
                                         state, crit_w)
         return score[:, 0], state
 
-    def precompute_fusion_kv(self, Va, Av) -> Dict:
-        """Both stacks' cross-attention keys/values of the memories, once
-        per decode."""
-        return {"worker": self.bm_worker_fus.precompute_kv(Av, Va),
-                "manager": self.bm_manager_fus.precompute_kv(Av, Va)}
-
     def decode_frontier(self, trg, labels, Va, Av, masks, t: int,
                         exploration: bool = False,
                         fusion_kv: Optional[Dict] = None,
@@ -418,11 +381,8 @@ class BMHrlAgent(nn.Module):
         (``ops.segments.frontier_exploration_noise``, one normal draw from
         ``draws``)."""
         C = self.pos_enc_C(self.emb_C(trg)).to(self.dtype)
-        kv = fusion_kv or {}
-        worker_feat = self.bm_worker_fus(C, Av, Va, masks, None,
-                                         kv.get("worker"))
-        manager_feat = self.bm_manager_fus(C, Av, Va, masks, None,
-                                           kv.get("manager"))
+        worker_feat, manager_feat = self.fusion_features(C, Va, Av, masks,
+                                                         None, fusion_kv)
         x_t = self.manager.linear(manager_feat[:, t:t + 1].float())
         if exploration:
             x_t = x_t + frontier_exploration_noise(
@@ -471,6 +431,84 @@ class BMHrlAgent(nn.Module):
         logits = self.worker.step_raw(wf_t, goal_t, goal_cache, t, key_mask,
                                       goal_fw)
         return logits, hb
+
+
+class BMHrlAgent(HierarchicalAgent):
+    """Bimodal hierarchical captioner. Defaults are the flagship's:
+    vocabulary given, d_model 1024, 4 heads, 2 layers, d_caps 300, dropout
+    0.1, bf16 compute. Parameters are f32 on ``device`` ("cuda" by default;
+    "cpu" runs the kernels' plain versions; "meta" builds shapes only)."""
+
+    def __init__(self, voc_size: int, d_video: int = 1024, d_audio: int = 128,
+                 d_model: int = 1024, d_model_caps: int = 300,
+                 att_heads: int = 4, att_layers: int = 2, dout_p: float = 0.1,
+                 d_goal: int = 64, d_ff_v: int = 1024, d_ff_a: int = 512,
+                 d_ff_c: int = 2048, critic_score_threshold: float = 0.25,
+                 dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
+                 device="cuda"):
+        super().__init__()
+        if torch.device(device).type != "meta":
+            device = resolve_device(device)
+        self.voc_size = voc_size
+        self.d_model = d_model
+        self.d_model_caps = d_model_caps
+        self.att_heads = att_heads
+        self.att_layers = att_layers
+        self.critic_score_threshold = critic_score_threshold
+        self.dtype = dtype
+        # d_ff_c sizes the feed-forward the reference builds in each fusion
+        # layer but never applies; kept for the JAX package's signature
+        self.d_ff_c = d_ff_c
+        self.pos_enc_A = PositionalEncoder(d_audio, dout_p, device)
+        self.pos_enc_V = PositionalEncoder(d_video, dout_p, device)
+        self.pos_enc_C = PositionalEncoder(d_model_caps, dout_p, device)
+        self.critic = SegmentCritic(d_model_caps, device)
+        self.emb_C = VocabularyEmbedder(voc_size, d_model_caps, device)
+        self.bm_enc = BMEncoder(
+            att_layers, d_model_M1=d_video, d_model_M2=d_audio,
+            d_model=d_model, d_ff_M1=d_ff_v, d_ff_M2=d_ff_a, H=att_heads,
+            dtype=dtype, use_flash=use_flash, device=device, dout_p=dout_p)
+        fus = dict(d_model_A=d_audio, d_model_V=d_video,
+                   d_model_C=d_model_caps, d_model=d_model, H=att_heads,
+                   dtype=dtype, device=device, use_flash=use_flash,
+                   dout_p=dout_p)
+        self.bm_worker_fus = BMFusion(att_layers, **fus)
+        self.bm_manager_fus = BMFusion(att_layers, **fus)
+        self.manager = Manager(d_model_caps, d_goal, device, dout_p)
+        self.worker = Worker(voc_size, d_model_caps, d_goal, d_model, dtype,
+                             device, dout_p)
+
+    def encode(self, V, A, masks, draws: Optional[Draws] = None):
+        """(B, Sv, d_video), (B, Sa, d_audio) features -> (Va, Av) memories
+        in the compute dtype. ``draws``: dropout draws (None: none)."""
+        V = self.pos_enc_V(V.to(self.dtype), draws)
+        A = self.pos_enc_A(A.to(self.dtype), draws)
+        return self.bm_enc(V, A, masks["V_mask"], masks["A_mask"], draws)
+
+    def fusion_features(self, C, Va, Av, masks, drop=None,
+                        fusion_kv: Optional[Dict] = None):
+        """(worker, manager) features of the caption C (B, L, Dc) over the
+        memories; ``fusion_kv``: ``precompute_fusion_kv`` (None: project
+        here)."""
+        kv = fusion_kv or {}
+        return (self.bm_worker_fus(C, Av, Va, masks, drop, kv.get("worker")),
+                self.bm_manager_fus(C, Av, Va, masks, drop,
+                                    kv.get("manager")))
+
+    def precompute_fusion_kv(self, Va, Av) -> Dict:
+        """Both stacks' cross-attention keys/values of the memories, once
+        per decode."""
+        return {"worker": self.bm_worker_fus.precompute_kv(Av, Va),
+                "manager": self.bm_manager_fus.precompute_kv(Av, Va)}
+
+    def fusion_layer(self, s: int, i: int) -> BMFusionLayer:
+        return (self.bm_worker_fus, self.bm_manager_fus)[s].layer(i)
+
+    def decode_memories(self, Va, Av, masks) -> List:
+        """The audio memory, then the video memory, each with its key mask
+        (the order of ``BMFusionLayer.step_mem_pre``'s queries)."""
+        return [(Av, masks["A_mask"][:, 0, :].to(torch.int32).contiguous()),
+                (Va, masks["V_mask"][:, 0, :].to(torch.int32).contiguous())]
 
 
 class _ValueFunction(nn.Module):

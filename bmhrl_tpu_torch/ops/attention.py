@@ -230,6 +230,33 @@ def folded_tile(draw: int) -> int:
     return max(16, min(64, 16384 // draw // 16 * 16))
 
 
+# the largest dynamic shared memory of one block on Hopper (csrc/common.cuh
+# kMaxSmem)
+MAX_SMEM = 232448
+
+
+def folded_simt_smem(G: int, draw: int) -> int:
+    """Shared-memory bytes of one "simt" block serving G queries at the
+    memory width ``draw`` (csrc/folded_attention.cu smem_bytes): the
+    queries and accumulators, a tile of BS f32 key rows (BS = 16384 // draw
+    clamped to 1..64), its scores, the softmax state and the tile's mask."""
+    bs = max(1, min(64, 16384 // draw))
+    return 4 * (2 * G * draw + bs * draw + G * bs + 3 * G) + 4 * bs
+
+
+def folded_simt_chunk(draw: int) -> int:
+    """Queries per block of the "simt" kernel: the largest of 64, 32, ...,
+    1 whose block fits ``MAX_SMEM`` (16 at draw 1024, 64 at draw 128); a
+    clip's G queries run in ceil(G / chunk) blocks. The C entry point
+    refuses any other value. Raises ValueError where not even one query
+    fits."""
+    for gc in (64, 32, 16, 8, 4, 2, 1):
+        if folded_simt_smem(gc, draw) <= MAX_SMEM:
+            return gc
+    raise ValueError(f"folded attention's simt kernel cannot hold a memory "
+                     f"of width {draw}")
+
+
 def folded_attend_plain(q_eff: torch.Tensor, mem: torch.Tensor,
                         mask: Optional[torch.Tensor],
                         scale: float) -> torch.Tensor:
@@ -256,6 +283,8 @@ def folded_attend(q_eff: torch.Tensor, mem: torch.Tensor,
     kernel takes q_eff (f32, any strides) and the scale as they are, a
     memory with unit stride along draw, 16-byte aligned, batch and row
     strides multiples of 8, and an int32 mask: one launch, nothing copied.
+    The "simt" kernel serves a clip's queries in blocks of
+    ``folded_simt_chunk(draw)``, so any G fits its shared memory.
     """
     if q_eff.device.type == "cpu":
         return folded_attend_plain(q_eff, mem, mask, scale)
@@ -297,12 +326,13 @@ def folded_attend(q_eff: torch.Tensor, mem: torch.Tensor,
             mask = torch.ones(B, S, dtype=torch.int32, device=mem.device)
         q = (q_eff.float() * scale).contiguous()
         mem = mem.contiguous()
+        chunk = folded_simt_chunk(draw)
         err = lib.bmhrl_folded_attend(
             _DTYPE_CODE[mem.dtype], q.data_ptr(), mem.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), B, G, S, draw,
+            mask.data_ptr(), out.data_ptr(), B, G, S, draw, chunk,
             _cuda.stream_of(mem))
         _cuda.check(lib, err, f"{what} (simt, B={B}, G={G}, S={S}, "
-                              f"draw={draw})")
+                              f"draw={draw}, chunk={chunk})")
     _cuda.LAUNCHES[f"folded_attend_{route}"] += 1
     return out
 
@@ -322,7 +352,7 @@ def _folded_lib():
     lib = _cuda.library("folded_attention")
     P, I, I64, F = _cuda.P, _cuda.I, _cuda.I64, _cuda.F
     if lib.bmhrl_folded_attend.argtypes is None:
-        lib.bmhrl_folded_attend.argtypes = [I, P, P, P, P, I, I, I, I, P]
+        lib.bmhrl_folded_attend.argtypes = [I, P, P, P, P, I, I, I, I, I, P]
         lib.bmhrl_folded_attend.restype = I
         lib.bmhrl_folded_attend_tc.argtypes = [
             P, P, P, P, I, I, I, I, I, I, I64, I64, I64, I64, I64, F, P]

@@ -20,6 +20,7 @@ submission format.
 from __future__ import annotations
 
 import csv
+import json
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -54,23 +55,58 @@ class ClipRequest:
 class ServeStats:
     clips: int = 0
     batches: int = 0
+    compiles: int = 0  # distinct (B, Sv, Sa) batch shapes
     wall_s: float = 0.0
     batch_latency_s: List[float] = field(default_factory=list)
     padded_rows: int = 0
+    padded_frac: float = 0.0
 
     def summary(self) -> Dict:
+        """The JAX server's summary: same keys, same rounding."""
         lat = sorted(self.batch_latency_s)
 
         def pct(q):
             return lat[min(len(lat) - 1, int(q * len(lat)))] if lat else 0.0
 
         return {"clips": self.clips, "batches": self.batches,
-                "wall_s": self.wall_s,
-                "clips_per_sec": self.clips / self.wall_s
+                "distinct_shapes": self.compiles,
+                "wall_s": round(self.wall_s, 3),
+                "clips_per_sec": round(self.clips / self.wall_s, 2)
                 if self.wall_s else 0.0,
-                "batch_latency_p50_s": pct(0.50),
-                "batch_latency_p95_s": pct(0.95),
-                "padded_rows": self.padded_rows}
+                "batch_latency_p50_s": round(pct(0.50), 4),
+                "batch_latency_p95_s": round(pct(0.95), 4),
+                "padded_row_frac": round(self.padded_frac, 4)}
+
+
+def read_proposals_json(path: str,
+                        durations: Optional[Dict[str, float]] = None
+                        ) -> List[ClipRequest]:
+    """ANet-format proposals {vid: {duration, timestamps: [[s, e], ...]}}.
+    A submission-style file ({"results": {vid: [{timestamp}, ...]}}) carries
+    no video durations, which the proportional feature crop needs: pass
+    ``durations`` ({vid: seconds}); without them it raises ValueError."""
+    with open(path) as f:
+        data = json.load(f)
+    if "results" in data:  # submission-style wrapper
+        if durations is None:
+            raise ValueError(
+                f"{path} is a submission-style proposals file with no "
+                "video durations; supply durations= (CLI: "
+                "--durations_json, an ANet JSON or {vid: seconds} map)")
+        data = {vid: {"duration": durations[vid],
+                      "timestamps": [seg["timestamp"] for seg in segs]}
+                for vid, segs in data["results"].items() if segs}
+    return [ClipRequest(vid, float(s), float(e), float(meta["duration"]))
+            for vid, meta in data.items() for s, e in meta["timestamps"]]
+
+
+def read_durations_json(path: str) -> Dict[str, float]:
+    """{vid: seconds} from a plain map or an ANet-format JSON."""
+    with open(path) as f:
+        data = json.load(f)
+    return {vid: (float(meta["duration"]) if isinstance(meta, dict)
+                  else float(meta))
+            for vid, meta in data.items()}
 
 
 def read_meta_tsv(path: str) -> List[ClipRequest]:
@@ -167,7 +203,8 @@ def _load_batch(reqs: Sequence[ClipRequest], idxs: List[int], vb: int,
 
 
 class CaptionServer:
-    """Holds a loaded ``BMHrlAgent`` and captions request lists on
+    """Holds a loaded captioner (``BMHrlAgent``, or a ``UnimodalAgent`` of
+    the AHRL/VHRL family) and captions request lists on
     ``device`` (the model's device): greedily by default, by beam search
     with ``beam_width`` > 1 (``length_penalty``: GNMT normalisation), or by
     sampling with ``sample`` (``temperature``, ``top_k``, ``top_p``; draws
@@ -227,6 +264,7 @@ class CaptionServer:
         bs = batch_size or max(cfg.inference_batch_size, 1)
         plan = plan_batches(reqs, cfg, bs)
         stats = ServeStats()
+        shapes_seen = set()
         sentences: List[Optional[str]] = [None] * len(reqs)
 
         with ThreadPoolExecutor(max_workers=io_threads) as pool:
@@ -249,7 +287,12 @@ class CaptionServer:
                 stats.clips += batch["n_valid"]
                 stats.padded_rows += feats["rgb"].shape[0] - batch["n_valid"]
                 stats.batch_latency_s.append(time.perf_counter() - bt0)
+                shapes_seen.add((feats["rgb"].shape[0], feats["rgb"].shape[1],
+                                 feats["audio"].shape[1]))
             stats.wall_s = time.perf_counter() - t0
+        stats.compiles = len(shapes_seen)
+        stats.padded_frac = stats.padded_rows / max(
+            stats.clips + stats.padded_rows, 1)
 
         predictions = {"version": "VERSION 1.0",
                        "external_data": {"used": True, "details": ""},

@@ -1,24 +1,26 @@
 """Caption decoders (the port of bmhrl_tpu/train/decode.py for the bimodal
-``BMHrlAgent``): greedy and sampled decode, beam search, each on the fast
-incremental loop and on the full-buffer loop.
+``BMHrlAgent`` and the unimodal ``UnimodalAgent``, through the methods of
+``models.bmhrl.HierarchicalAgent``): greedy and sampled decode, beam
+search, each on the fast incremental loop and on the full-buffer loop.
 
 The fast loop (``_fast_setup``):
-- The bimodal encoder runs once per clip.
+- The encoder runs once per clip.
 - The frozen critic's RNN state is carried across steps (6 cell kernels per
   token instead of a rescan of the caption); its weights are packed for
   the cell kernels once per call.
 - Each step runs O(1) positions: KV-cached self-attention and folded
   cross-attention against the RAW encoder memories. The worker and manager
   fusion stacks run as two passes over their own weights, but their
-  cross-attention queries meet in ONE ``folded_attend`` per branch and
-  layer (G = 2 x heads), so both stacks share one read of each memory. In
-  beam search the W beams of a clip join them too (G = 2 x heads x W), so
-  each clip's memory is read once per step for all its beams.
+  cross-attention queries meet in ONE ``folded_attend`` per memory and
+  layer (G = 2 x heads; the bimodal agent has an audio and a video memory,
+  the unimodal one memory), so both stacks share one read of each memory.
+  In beam search the W beams of a clip join them too (G = 2 x heads x W),
+  so each clip's memory is read once per step for all its beams.
 
 The full-buffer loop (``_decode_loop``, ``beam_decode(use_fast=False)``)
 runs both fusion stacks over the whole caption buffer every token, with the
 memories' cross-attention keys/values projected once per call, and the
-heads at the frontier only (``BMHrlAgent.decode_frontier``). It is the
+heads at the frontier only (``decode_frontier``). It is the
 loop of ``decode(exploration=True)``: the Manager's exploration noise
 needs the statistics of the whole buffer.
 
@@ -94,18 +96,18 @@ def _fast_setup(model, Va, Av, masks_src, B: int, L: int,
 
     ``beam_share`` = W > 1: B counts ROWS (clips x beams, clip-major) while
     Va, Av and masks_src stay at clip level; the W beams of a clip fold
-    into the query-group axis of ``folded_attend`` (one call per branch and
+    into the query-group axis of ``folded_attend`` (one call per memory and
     layer, G = 2 x heads x W)."""
     caches0 = model.init_decode_caches(B, L)
-    stacks = (model.bm_worker_fus, model.bm_manager_fus)
     N, H = model.att_layers, model.att_heads
+    layers = [[model.fusion_layer(s, i) for i in range(N)] for s in range(2)]
     # loop-invariant weights (merged QKV, folded projections, packed critic
     # cells), once per call
-    sw = [[s.layer(i).step_weights() for i in range(N)] for s in stacks]
+    sw = [[layer.step_weights() for layer in stack] for stack in layers]
     crit_w = model.critic.step_weights()  # the frozen cells, packed
     goal_fw = model.worker.goal_attention.folded_weights()
-    mask_A = masks_src["A_mask"][:, 0, :].to(torch.int32).contiguous()
-    mask_V = masks_src["V_mask"][:, 0, :].to(torch.int32).contiguous()
+    # the bimodal agent's audio and video memories; the unimodal agent's one
+    mems = model.decode_memories(Va, Av, masks_src)
     scale = 1.0 / math.sqrt(model.d_model // H)
     # PAD-validity of consumed positions (<s> at 0 is valid by definition)
     valid0 = torch.zeros(B, L, dtype=torch.bool, device=Va.device)
@@ -125,17 +127,16 @@ def _fast_setup(model, Va, Av, masks_src, B: int, L: int,
                                                     caches["critic"], crit_w)
         c = [c_t, c_t]
         for i in range(N):
-            pre = [stacks[s].layer(i).step_mem_pre(
-                c[s], t, caches["fus"][s][i], valid, sw[s][i])
+            pre = [layers[s][i].step_mem_pre(c[s], t, caches["fus"][s][i],
+                                             valid, sw[s][i])
+                   for s in range(2)]
+            # per memory, worker heads first, then manager heads:
+            # (rows, 2H, draw)
+            ctx = [attend(torch.cat([pre[0][1 + j], pre[1][1 + j]], dim=1),
+                          mem, mask) for j, (mem, mask) in enumerate(mems)]
+            c = [layers[s][i].step_mem_post(
+                pre[s][0], *(x[:, s * H:(s + 1) * H] for x in ctx), sw[s][i])
                 for s in range(2)]
-            # worker heads first, then manager heads: (rows, 2H, draw)
-            ctx_A = attend(torch.cat([pre[0][1], pre[1][1]], dim=1), Av,
-                           mask_A)
-            ctx_V = attend(torch.cat([pre[0][2], pre[1][2]], dim=1), Va,
-                           mask_V)
-            c = [stacks[s].layer(i).step_mem_post(
-                pre[s][0], ctx_A[:, s * H:(s + 1) * H],
-                ctx_V[:, s * H:(s + 1) * H], sw[s][i]) for s in range(2)]
         logits, hb = model.decode_step_tail(
             c[0], c[1], label_t, caches["hb"], caches["goal"], t, valid,
             goal_fw)

@@ -74,11 +74,14 @@ def load_jax_params(model: nn.Module, tree: Dict) -> nn.Module:
 
 def random_jax_layout_params(dims: Dict, seed: int = 0) -> Dict:
     """A random flax-layout tree ``{"params": ...}`` of numpy f32 arrays with
-    the keys and shapes that ``BMHrlAgent(**dims).init`` gives in the JAX
-    package (``random_module_params`` of the agent's shapes)."""
+    the keys and shapes that the JAX package's ``init`` of the agent gives
+    (``random_module_params`` of the agent's shapes): ``UnimodalAgent`` when
+    ``dims`` name a ``modality`` (AHRL/VHRL), else ``BMHrlAgent``."""
     from bmhrl_tpu_torch.models.bmhrl import BMHrlAgent
+    from bmhrl_tpu_torch.models.unimodal import UnimodalAgent
 
-    return random_module_params(BMHrlAgent(**dims, device="meta"), seed)
+    cls = UnimodalAgent if "modality" in dims else BMHrlAgent
+    return random_module_params(cls(**dims, device="meta"), seed)
 
 
 def random_module_params(model: nn.Module, seed: int = 0) -> Dict:

@@ -18,8 +18,11 @@ Phases, each of which raises at its first failure:
    audio and video shapes for B=256 and B=32, the long-source shapes and
    (tensor core) edge cases, each fully-masked row equal to mean(mem); a
    CUDA graph of one tensor-core call must hold one kernel and nothing
-   else. The critic cells (f32) run
-   over packed weights and are also held against the unpacked cell math.
+   else. The CUDA-core folded route also at the f32 beam's video call (64
+   clips, S 128, draw 1024, G = 8, 24, 32, 64: several blocks a clip above
+   ``folded_simt_chunk``), within 1e-5, G = 32 timed. The critic cells
+   (f32) run over packed weights and are also held against the unpacked
+   cell math.
    Kernel times are device times of calls replayed from a CUDA graph;
 3. reference: a small f32 model decoded on the card through the kernels
    and on the CPU through the plain versions: identical tokens, and
@@ -49,9 +52,26 @@ Phases, each of which raises at its first failure:
    with 8 tensor-core flash launches per token; every loop syncs the host
    once per token (``torch.cuda.set_sync_debug_mode``). Folded attention
    at the beam shape (64 clips, G=32) against the repeated layout (256
-   rows, G=8), the library call and the bound; clips/s of beam W=4
-   (B=64), sampled (B=256) and full-buffer greedy (B=32) decode;
-6. train: the training path through ``train.steps.StepFactory``. Flash
+   rows, G=8), the library call and the bound; the flagship in f32 decoded
+   by beam search at W=4 (G = 32 on the CUDA-core folded route, launches
+   counted) agrees with its plain-version run on >= 99% of tokens;
+   clips/s of beam W=4 (B=64), sampled (B=256) and full-buffer greedy
+   (B=32) decode;
+6. entry_points: the serving entry points at the flagship's width. A
+   train TSV of 10168 words (the CLIs build the flagship's vocabulary of
+   10172), a reference .pt written by ``utils.checkpoint.
+   export_torch_bmhrl`` from the seed-0 weights and a 64-request proposals
+   JSON: ``cli.serve_captions.main`` (greedy and beam W=4, each a main
+   path with its launches counted) answers all 64 with the submission of
+   a CaptionServer given the same weights through ``load_jax_params``;
+   ``cli.single_video.main`` gives the server's caption of the same clip;
+   ``--mode AHRL`` and ``--mode VHRL`` serve (main paths: every
+   tensor-core kernel and cell launched, no CUDA-core route); small f32
+   AHRL and VHRL models decode identically on card and CPU (greedy,
+   sampled, beam W=2, full-buffer); greedy clips/s at B=256 of AHRL, VHRL
+   and the bimodal flagship; an AHRL warmstart step at B=16 (ms/step,
+   loss falling over 3 steps);
+7. train: the training path through ``train.steps.StepFactory``. Flash
    attention's gradient (the autograd Function: kernel forward, the JAX
    package's recompute as backward) against autograd through the plain
    version at the training shapes, bf16 (tensor-core route) and f32
@@ -73,7 +93,7 @@ Phases, each of which raises at its first failure:
    forward/backward/optimizer split from CUDA events, and the flash
    forward kernel, backward recompute and
    ``scaled_dot_product_attention`` forward + backward at the B=16 sites;
-7. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
+8. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
    one B=16 warmstart step under ``torch.profiler`` (last: a profiled
    process launches more slowly).
 
@@ -515,6 +535,35 @@ def phase_kernels(K):
               "eager_ms": ems, "plain_ms": pms, "library_ms": lms,
               "bound_ms": bms, "bound_by": by})
         K["folded_simt"].add_main_shape(ms, pms, lms, nbytes, ops, "f32")
+    # the CUDA-core route at the f32 beam's video call: 64 clips, S 128,
+    # draw 1024, G = 2 stacks x 4 heads x W beams for W = 1, 3, 4, 8; above
+    # ops.attention.folded_simt_chunk(1024) = 16 queries a clip takes
+    # several blocks. Within 1e-5 of the plain version; G = 32 (W = 4) is
+    # timed
+    for Gb in (8, 24, 32, 64):
+        qe, mem, mask_i = folded_case(64, Gb, 128, 1024, torch.float32)
+        got = att.folded_attend(qe, mem, mask_i, scale)
+        want = att.folded_attend_plain(qe, mem, mask_i, scale)
+        torch.cuda.synchronize()
+        if att.folded_route(mem.dtype, 1024) != "simt":
+            raise AssertionError("an f32 memory left the CUDA-core route")
+        e = check_close(f"folded f32 G={Gb}", got, want, 1e-5)
+        e = max(e, check_close(f"folded f32 G={Gb} masked row = mean(mem)",
+                               got[63], mem[63].mean(0).expand(Gb, -1),
+                               1e-5))
+        K["folded_simt"].err(e)
+        rec = {"G": Gb, "chunk": att.folded_simt_chunk(1024),
+               "max_abs_err": e, "tol": 1e-5}
+        if Gb == 32:
+            ms, ems, pms, lms, nbytes, ops = folded_times(qe, mem, mask_i,
+                                                          scale)
+            bms, by = bound_ms(nbytes, ops, "f32")
+            rec.update(kernel_ms=ms, eager_ms=ems, plain_ms=pms,
+                       library_ms=lms, bound_ms=bms, bound_by=by)
+            K["folded_simt"].rec["f32_beam_V_B64_G32"] = rec
+        emit({"kernel": "folded_attend_simt", "case": "f32 beam V", "B": 64,
+              "S": 128, "draw": 1024, **rec})
+        del qe, mem, mask_i, got, want
     # tensor-core edge cases, each with a fully-masked row where there is a
     # mask: one key, S not a multiple of 16, blocks of the cluster with no
     # keys (S = 129 over 4, 260 over 8, 300 over 8), long S, B = 1, G = 4,
@@ -1054,6 +1103,51 @@ def folded_beam_shape(K):
     K["folded_tc"].rec["beam_W4_B64_pair"] = pair
 
 
+def f32_beam_flagship(K):
+    """The flagship in f32 (``--compute_dtype float32``) decoded by beam
+    search at W=4 (4 clips, Sv 128, Sa 256, 30 tokens): the W beams fold
+    into the CUDA-core folded route's query groups, G = 2 x 4 x 4 = 32 at
+    the 1024-wide video memory, which takes two blocks a clip
+    (``folded_simt_chunk``). Its launches are counted; its tokens agree
+    with the same decode through the plain versions on >= 99% of
+    positions."""
+    import torch
+
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.ops import attention as att
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.train.decode import beam_decode
+
+    model = build_model(Config(compute_dtype="float32").agent_kwargs(VOC),
+                        "cuda")
+    feats = make_feats(4, 128, 256, 1024, 128, "cuda", seed=17)
+    masks = make_masks(feats)
+    args = (model, feats, masks, 30, BOS, EOS, PAD)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    tok_k, score_k = beam_decode(*args, beam_width=4)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    with plain_kernels():
+        tok_p, score_p = beam_decode(*args, beam_width=4)
+    agree = float((tok_k == tok_p)[:, 1:].float().mean())
+    emit({"phase": "decode_modes", "check": "f32 flagship beam W=4",
+          "clips": 4, "G_video": 32,
+          "folded_simt_chunk": att.folded_simt_chunk(1024),
+          "token_agreement_with_plain": agree, "min_required": 0.99,
+          "score_max_abs_diff": float((score_k - score_p).abs().max()),
+          "launches": launches, "tokens": tok_k[:, :12].tolist()})
+    if agree < 0.99 or not torch.isfinite(score_k).all():
+        raise AssertionError(f"f32 beam W=4: agreement {agree}")
+    if launches["folded_attend_simt"] <= 0 or launches["folded_attend_tc"]:
+        raise AssertionError(f"f32 beam W=4 folded launches: {launches}")
+    K["folded_simt"].rec["launches_f32_beam_W4"] = launches[
+        "folded_attend_simt"]
+    del model
+
+
 def syncs_per_token(run):
     """Host syncs per generated token of ``run(max_len)``: the device syncs
     that ``torch.cuda.set_sync_debug_mode`` reports in a 30-token run less
@@ -1236,6 +1330,7 @@ def phase_decode_modes(K, model):
     del feats, masks, f8, m8
 
     folded_beam_shape(K)
+    f32_beam_flagship(K)
 
     # throughput at the bench's shapes, 30 tokens, no early stop
     f64 = make_feats(64, 128, 256, 1024, 128, "cuda", seed=64)
@@ -1256,6 +1351,285 @@ def phase_decode_modes(K, model):
     throughput(lambda: decode(model, f32, m32, 30, BOS, -1, PAD,
                               use_fast=False), 32,
                mode="full-buffer greedy", B=32)
+
+
+UNI_SMALL = dict(voc_size=40, d_m1=128, d_ff_m1=64, d_model=256,
+                 d_model_caps=32, att_heads=2, att_layers=2, d_goal=16)
+
+
+def write_train_tsv(path, n_words):
+    """A train meta TSV whose captions hold ``n_words`` distinct words, ten
+    to a caption: the CLIs build a vocabulary of n_words + 4 entries."""
+    words = [f"w{i}" for i in range(n_words)]
+    with open(path, "w") as f:
+        f.write("video_id\tcaption\tstart\tend\tduration\tphase\tidx\n")
+        for j in range(0, n_words, 10):
+            f.write(f"t{j}\t{' '.join(words[j:j + 10])}\t0.0\t5.0\t10.0\t"
+                    f"train\t{j}\n")
+
+
+def run_cli(main, argv):
+    """``main(argv)`` with its printed lines captured, its launches counted
+    (zeroed just before, read just after): (result, lines, launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from bmhrl_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        result = main(argv)
+    torch.cuda.synchronize()
+    return result, out.getvalue().splitlines(), dict(_cuda.LAUNCHES)
+
+
+def check_serve_launches(what, launches):
+    """Every kernel of the bf16 serving path launched, no CUDA-core route."""
+    bad = {n: v for n, v in launches.items()
+           if (v <= 0) != n.endswith("_simt")}
+    if bad:
+        raise AssertionError(f"{what} launches: {launches}")
+
+
+def small_unimodal_card_vs_cpu():
+    """Small f32 AHRL and VHRL models decoded on the card (kernels) and on
+    the CPU (plain versions), the same draws fed to both: greedy, sampled
+    (temperature 0.8, top_k 5, top_p 0.9), beam W=2 and the full-buffer
+    greedy decode. Identical tokens, probabilities and scores within 1e-4;
+    the card run launches the CUDA-core flash and folded routes."""
+    import torch
+
+    from bmhrl_tpu_torch.models.unimodal import UnimodalAgent
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.train.decode import beam_decode, decode
+    from bmhrl_tpu_torch.weights import (load_jax_params,
+                                         random_jax_layout_params)
+
+    HostDraws = host_draws_class()
+    for modality in ("audio", "video"):
+        dims = dict(UNI_SMALL, modality=modality)
+        tree = random_jax_layout_params(dims, seed=3)
+        out = {}
+        for device in ("cuda", "cpu"):
+            model = load_jax_params(UnimodalAgent(
+                **dims, dtype=torch.float32, device=device), tree).eval()
+            feats = make_feats(8, 128, 160, 128, 128, device, seed=3)
+            feats["audio"][2, 90:] = 0.0     # ragged audio
+            feats["rgb"][5] = 0.0            # a zero-feature video row
+            feats["audio"][6] = 0.0          # a zero-feature audio row
+            args = (model, feats, make_masks(feats), 12, 2, 3, 1)
+            _cuda.reset_launches()
+            runs = {"fast_greedy": decode(*args),
+                    "sampled": decode(*args, greedy=False,
+                                      draws=HostDraws(5, device),
+                                      temperature=0.8, top_k=5, top_p=0.9),
+                    "beam_W2": beam_decode(*args, beam_width=2),
+                    "full_greedy": decode(*args, use_fast=False)}
+            out[device] = {k: (t.cpu(), p.cpu()) for k, (t, p) in runs.items()}
+            if device == "cuda":
+                launches = dict(_cuda.LAUNCHES)
+        res = {k: {"tokens_identical": bool(torch.equal(t, out["cpu"][k][0])),
+                   "max_abs_err": float((p - out["cpu"][k][1]).abs().max())}
+               for k, (t, p) in out["cuda"].items()}
+        emit({"phase": "entry_points", "check": "small_unimodal_card_vs_cpu",
+              "modality": modality, "dtype": "f32", "results": res,
+              "tol": 1e-4, "launches": launches})
+        bad = [k for k, v in res.items() if not v["tokens_identical"]
+               or not v["max_abs_err"] <= 1e-4]
+        if bad or not (launches["flash_attention_simt"] > 0
+                       and launches["folded_attend_simt"] > 0):
+            raise AssertionError(f"unimodal {modality}, card vs CPU: {bad}, "
+                                 f"launches {launches}")
+
+
+def unimodal_warmstart(K, cfg):
+    """The AHRL flagship (d_model 1024, 4 heads, 2 layers, bf16, random
+    weights from seed 0) trained by ``StepFactory``: three warmstart steps
+    on one B=16 batch (launches counted; the loss finite and falling), then
+    ms/step (median of 5 after 2 warm-up steps)."""
+    import torch
+
+    from bmhrl_tpu_torch.models.bmhrl import (BMManagerValueFunction,
+                                              BMWorkerValueFunction)
+    from bmhrl_tpu_torch.models.unimodal import AudioAgent
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.train.steps import StepFactory
+    from bmhrl_tpu_torch.weights import load_jax_params, random_module_params
+
+    model = AudioAgent.build(cfg, VOC, "cuda")
+    load_jax_params(model, random_module_params(model, 0))
+    nets = [cls(cfg.d_model_caps, device="cuda") for cls in (
+        BMWorkerValueFunction, BMManagerValueFunction)]
+    for i, net in enumerate(nets):
+        load_jax_params(net, random_module_params(net, 1 + i))
+    sf = StepFactory(cfg, model, *nets, emb_trainable=True)
+    state = sf.init_state()
+    batch = make_train_batch(16, seed=1)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    losses = []
+    for i in range(3):
+        state, m, _ = sf.warmstart_step(state, batch, i,
+                                        cfg.rl_cap_warmstart_lr)
+        losses.append(m["loss"].item())
+    launches = dict(_cuda.LAUNCHES)
+
+    def ws():
+        nonlocal state
+        state, _, _ = sf.warmstart_step(state, batch, 7,
+                                        cfg.rl_cap_warmstart_lr)
+
+    ms, samples = step_ms(ws, n=5, warmup=2)
+    emit({"phase": "entry_points", "check": "AHRL warmstart", "B": 16,
+          "Sa": 256, "losses": losses, "launches": launches,
+          "ms_per_step": ms, "samples": samples})
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"AHRL warmstart loss did not fall: {losses}")
+    if (launches["flash_attention_tc"] <= 0 or launches["lstm_cell"] <= 0
+            or launches["gru_cell"] <= 0):
+        raise AssertionError(f"AHRL warmstart launches: {launches}")
+    for name, n in launches.items():
+        K[name].rec["launches_ahrl_train"] = n
+
+
+def phase_entry_points(K, model):
+    """The serving entry points at the flagship's width: the port's
+    ``serve_captions`` CLI from a reference ``.pt`` (greedy and beam W=4)
+    against a CaptionServer given the same weights, ``single_video`` against
+    the server on the same clip, the AHRL and VHRL CLI serves, the small f32
+    unimodal decodes card vs CPU, unimodal and bimodal greedy clips/s and
+    an AHRL warmstart step. ``model``: the serve phase's flagship (seed 0
+    weights, loaded directly)."""
+    import torch
+
+    from bmhrl_tpu_torch.cli import serve_captions, single_video
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import BOS, PAD, build_vocab_from_tsv
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.serve import CaptionServer, ClipRequest
+    from bmhrl_tpu_torch.train.decode import decode
+    from bmhrl_tpu_torch.utils.checkpoint import export_torch_bmhrl
+    from bmhrl_tpu_torch.weights import random_jax_layout_params
+
+    cfg = Config()
+    with tempfile.TemporaryDirectory() as root:
+        vdir, adir, reqs = write_requests(root)
+        tsv = os.path.join(root, "train.csv")
+        write_train_tsv(tsv, VOC - 4)
+        vocab = build_vocab_from_tsv(tsv)
+        if len(vocab) != VOC:
+            raise AssertionError(f"vocabulary of {len(vocab)} != {VOC}")
+        pt = os.path.join(root, "bm_hrl_agent.pt")
+        t0 = time.perf_counter()
+        export_torch_bmhrl(random_jax_layout_params(cfg.agent_kwargs(VOC), 0),
+                           pt)
+        export_s = time.perf_counter() - t0
+        props = os.path.join(root, "proposals.json")
+        with open(props, "w") as f:
+            json.dump({r.video_id: {"duration": r.duration,
+                                    "timestamps": [[r.start, r.end]]}
+                       for r in reqs}, f)
+        base = ["--proposals", props, "--video_features_path", vdir,
+                "--audio_features_path", adir, "--train_meta_path", tsv,
+                "--batch_size", "32", "--device", "cuda"]
+        cfg = cfg.replace(video_features_path=vdir, audio_features_path=adir)
+
+        # the flagship CLI from the .pt vs the server with the weights
+        # loaded directly: the same submissions
+        for mode, extra in (("greedy", []), ("beam W=4",
+                                             ["--beam_width", "4"])):
+            out = os.path.join(root, f"sub_{len(extra)}.json")
+            t0 = time.perf_counter()
+            stats, lines, launches = run_cli(serve_captions.main, base + [
+                "--torch_checkpoint", pt, "--out", out] + extra)
+            cli_s = time.perf_counter() - t0
+            with open(out) as f:
+                got = json.load(f)
+            want, _ = CaptionServer(
+                cfg, model, vocab.itos, device="cuda",
+                beam_width=4 if extra else 1).caption(reqs, batch_size=32)
+            sents = [s["sentence"] for segs in got["results"].values()
+                     for s in segs]
+            emit({"phase": "entry_points", "cli": "serve_captions",
+                  "mode": mode, "weights": ".pt (export_torch_bmhrl)",
+                  "pt_export_s": export_s, "cli_s": cli_s,
+                  "stats": stats.summary(),
+                  "answered": len(sents), "equal_to_direct_server":
+                  got == want, "printed": lines, "launches": launches,
+                  "example": sents[:3]})
+            if len(sents) != len(reqs) or not all(sents) or got != want:
+                raise AssertionError(f"serve_captions {mode}: answered "
+                                     f"{len(sents)}, equal {got == want}")
+            check_serve_launches(f"serve_captions {mode}", launches)
+            key = "launches_cli_serve" if not extra else "launches_cli_beam"
+            for name, n in launches.items():
+                K[name].rec[key] = n
+
+        # single_video on a clip whose lengths are its buckets' (128, 256):
+        # the server runs the same shapes at B=1
+        cdir = os.path.join(root, "clip")
+        os.makedirs(cdir)
+        rng = np.random.RandomState(9)
+        for name, shape in (("c_rgb", (128, 1024)), ("c_flow", (128, 1024)),
+                            ("c", (256, 128))):
+            np.save(os.path.join(cdir, f"{name}.npy"),
+                    rng.rand(*shape).astype(np.float32))
+        sentence, lines, launches = run_cli(single_video.main, [
+            "--rgb", os.path.join(cdir, "c_rgb.npy"), "--flow",
+            os.path.join(cdir, "c_flow.npy"), "--audio",
+            os.path.join(cdir, "c.npy"), "--train_meta_path", tsv,
+            "--torch_checkpoint", pt, "--device", "cuda"])
+        one, _ = CaptionServer(cfg, model, vocab.itos, device="cuda").caption(
+            [ClipRequest("c", 0.0, 10.0, 10.0, cdir, cdir)], batch_size=1)
+        want = one["results"]["c"][0]["sentence"]
+        emit({"phase": "entry_points", "cli": "single_video",
+              "sentence": sentence, "server_sentence": want,
+              "printed": lines, "launches": launches})
+        if not sentence or sentence != want:
+            raise AssertionError(f"single_video {sentence!r} != server "
+                                 f"{want!r}")
+
+        # the unimodal family through the CLI, greedy, flagship width
+        # (random weights from seed 0)
+        for mode in ("AHRL", "VHRL"):
+            out = os.path.join(root, f"sub_{mode}.json")
+            stats, lines, launches = run_cli(serve_captions.main, base + [
+                "--mode", mode, "--out", out])
+            with open(out) as f:
+                sents = [s["sentence"] for segs in json.load(f)[
+                    "results"].values() for s in segs]
+            emit({"phase": "entry_points", "cli": "serve_captions",
+                  "mode": mode, "answered": len(sents),
+                  "stats": stats.summary(), "launches": launches,
+                  "example": sents[:3]})
+            if len(sents) != len(reqs) or not all(sents):
+                raise AssertionError(f"{mode} serve: a request got no "
+                                     "sentence")
+            check_serve_launches(f"{mode} serve", launches)
+            for name, n in launches.items():
+                K[name].rec[f"launches_{mode.lower()}_serve"] = n
+
+    small_unimodal_card_vs_cpu()
+
+    # greedy clips/s at B=256 (Sv 128, Sa 256, 30 tokens, no early stop):
+    # the bimodal flagship beside AHRL and VHRL, in this call
+    f256 = make_feats(256, 128, 256, 1024, 128, "cuda", seed=256)
+    m256 = make_masks(f256)
+    throughput(lambda: decode(model, f256, m256, 30, BOS, -1, PAD), 256,
+               mode="greedy BMHRL", B=256)
+    for mode in ("AHRL", "VHRL"):
+        uni = serve_captions.load_captioner(Config(mode=mode), VOC, None,
+                                            "cuda")
+        throughput(lambda: decode(uni, f256, m256, 30, BOS, -1, PAD), 256,
+                   mode=f"greedy {mode}", B=256)
+        del uni
+    del f256, m256
+    torch.cuda.empty_cache()
+    unimodal_warmstart(K, Config(mode="AHRL"))
 
 
 def device_groups(prof):
@@ -1901,6 +2275,7 @@ def main() -> int:
               ("reference", lambda: phase_reference(K)),
               ("serve", lambda: made.update(serve=phase_serve(K))),
               ("decode_modes", lambda: phase_decode_modes(K, made["serve"])),
+              ("entry_points", lambda: phase_entry_points(K, made["serve"])),
               ("train", lambda: made.update(train=phase_train(K))),
               # the profiler runs last: once it has traced, the host
               # launches more slowly

@@ -267,7 +267,8 @@ def _port_files():
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
     """The port and chip_smoke.py import neither JAX/flax nor the JAX
-    package, not even its JAX-free modules."""
+    package, not even its JAX-free modules, nor the JAX CLIs (the top-level
+    ``cli`` package)."""
     tree = ast.parse(path.read_text())
     names = []
     for node in ast.walk(tree):
@@ -276,10 +277,38 @@ def test_port_imports_no_jax(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
     bad = [n for n in names if n.split(".")[0] in ("jax", "flax", "jaxlib",
-                                                   "optax", "bmhrl_tpu")]
+                                                   "optax", "bmhrl_tpu",
+                                                   "cli")]
     assert not bad, f"{path}: imports {bad}"
 
 
 def test_kernel_sources_ship_with_the_package():
     srcs = {p.name for p in (REPO / "bmhrl_tpu_torch" / "csrc").iterdir()}
     assert {f"{n}.cu" for n in _cuda.SOURCES} | {"common.cuh"} <= srcs
+
+
+def test_folded_simt_chunk_keeps_shared_memory_in_bounds():
+    """The "simt" folded kernel's block fits the card's 232,448 bytes of
+    shared memory at every width from 1 to 1024 and every G up to the f32
+    beam's 2 stacks x 4 heads x 16 beams, and a chunk is never smaller
+    than the f32 greedy decode's G = 8 at these widths (one block per
+    clip there, as before the chunking)."""
+    assert att.MAX_SMEM == 232448
+    for draw in range(1, 1025):
+        chunk = att.folded_simt_chunk(draw)
+        assert chunk >= 8 and chunk & (chunk - 1) == 0, draw
+        assert att.folded_simt_smem(chunk, draw) <= att.MAX_SMEM, draw
+        if chunk < 64:  # the next power of two would not fit
+            assert att.folded_simt_smem(2 * chunk, draw) > att.MAX_SMEM
+        for G in range(1, 2 * 4 * 16 + 1):
+            assert att.folded_simt_smem(min(G, chunk), draw) <= att.MAX_SMEM
+    # the flagship's memories: video 1024 wide, audio 128
+    assert att.folded_simt_chunk(1024) == 16
+    assert att.folded_simt_chunk(128) == 64
+    assert att.folded_simt_smem(16, 1024) == 197888
+    assert att.folded_simt_smem(8, 1024) == 131744
+    # the unchunked block of the W = 3 and 4 beams at draw 1024 did not fit
+    assert att.folded_simt_smem(24, 1024) == 264032 > att.MAX_SMEM
+    assert att.folded_simt_smem(32, 1024) == 330176
+    with pytest.raises(ValueError, match="cannot hold"):
+        att.folded_simt_chunk(1 << 20)

@@ -1,15 +1,19 @@
 """Sampled decode, port vs JAX package on the CPU: the sampling filter, the
-sampled fast loop fed the port's uniforms, and the server's sampling and
-beam options.
+sampled fast loop fed the port's uniforms, the server's sampling and beam
+options, and the sampled server over several batches fed the port's
+uniforms.
 
 The port draws its uniforms from a ``blocks.Draws`` ("sample" stream); the
 same arrays go to JAX through ``torch_port_common.fed_jax_draws``, whose
 categorical is the port's Gumbel-max. Tokens must be identical; the
 chosen tokens' probabilities agree to 1e-4 absolute."""
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_decode import BUCKETS, request_dirs  # noqa: F401
 from torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_common import (BOS, DIMS, EOS, MAX_LEN, PAD, RecordingDraws,
                                features, fed_jax_draws, jax_agent,
@@ -18,12 +22,14 @@ from torch_port_common import (BOS, DIMS, EOS, MAX_LEN, PAD, RecordingDraws,
 from bmhrl_tpu.config import Config as JConfig
 from bmhrl_tpu.ops.masking import make_masks as jmake_masks
 from bmhrl_tpu.serve import CaptionServer as JCaptionServer
+from bmhrl_tpu.serve import ClipRequest as JClipRequest
 from bmhrl_tpu.train.decode import decode as jdecode
 from bmhrl_tpu.train.decode import sample_filter as jsample_filter
 from bmhrl_tpu_torch.config import Config
 from bmhrl_tpu_torch.models.blocks import Draws
 from bmhrl_tpu_torch.ops.masking import make_masks
-from bmhrl_tpu_torch.serve import CaptionServer
+from bmhrl_tpu_torch import serve as port_serve
+from bmhrl_tpu_torch.serve import CaptionServer, ClipRequest
 from bmhrl_tpu_torch.train.decode import decode, sample_filter
 from bmhrl_tpu_torch.weights import random_jax_layout_params
 
@@ -137,3 +143,37 @@ def test_server_accepts_the_edges(tree):
                     dict(sample=False, temperature=0.0)):
         CaptionServer(Config(), torch_agent(tree), itos, device="cpu",
                       **options)
+
+
+@pytest.mark.parametrize("top_k", [0, 6])
+def test_sampled_server_matches_jax(tree, request_dirs, top_k):
+    """CaptionServer(sample=True) over three batches (two of them tails
+    padded with zero rows), the port's uniforms fed to the JAX server in
+    the order its batches draw them: identical submissions. JAX runs with
+    its folded kernel off (zero rows; see test_torch_port_decode)."""
+    vdir, adir, rows = request_dirs
+    itos = ["<unk>", "<blank>", "<s>", "</s>"] + [
+        f"w{i}" for i in range(DIMS["voc_size"] - 4)]
+    opts = dict(sample=True, temperature=0.8, top_p=0.9, top_k=top_k,
+                sample_seed=11)
+    draws = RecordingDraws(11)
+    with mock.patch.object(port_serve, "Draws", lambda seed, device: draws):
+        server = CaptionServer(
+            Config(video_features_path=vdir, audio_features_path=adir,
+                   **BUCKETS), torch_agent(tree), itos, device="cpu", **opts)
+    got, stats = server.caption([ClipRequest(*r, 10.0) for r in rows],
+                                batch_size=4, io_threads=2)
+    assert (stats.batches, stats.padded_rows) == (3, 2)
+    assert len(draws.drawn["sample"]) > 3 * 2  # several steps per batch
+    jcfg = JConfig(video_features_path=vdir, audio_features_path=adir,
+                   mesh_shape=(1, 1), to_log=False, compute_dtype="float32",
+                   **BUCKETS)
+    with jax_kernels(flash=True, folded=False), \
+            fed_jax_draws(uniforms=draws.drawn["sample"]):
+        want, _ = JCaptionServer(jcfg, jax_agent(), jax_tree(tree), itos,
+                                 **opts).caption(
+            [JClipRequest(*r, 10.0) for r in rows], batch_size=4,
+            io_threads=2)
+    assert got == want
+    sents = [s["sentence"] for segs in got["results"].values() for s in segs]
+    assert len(sents) == len(rows) and len(set(sents)) > 1
