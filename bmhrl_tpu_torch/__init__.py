@@ -3,7 +3,9 @@
 ``cli.serve_captions`` and ``cli.single_video``, with weights from a
 reference ``.pt``, ``utils.checkpoint``) of the bimodal hierarchical
 captioner (BMHRL) and its unimodal ablations (AHRL, VHRL), and their
-training steps (``train.steps.StepFactory``).
+training (the steps ``train.steps.StepFactory`` and the loop
+``train.loop.train_rl_cap``, run by the CLIs ``cli.run_training`` and
+``cli.synthetic_proof``).
 
 The JAX package ``bmhrl_tpu`` is the reference and is never imported here.
 Entry points take a ``device`` argument: ``"cuda"`` by default (an error

@@ -1,11 +1,17 @@
 """Experiment configuration: the port's copy of bmhrl_tpu.config.Config,
 every field with the same name and default, so a ``--config_json`` that
 the JAX CLIs take is taken here too (and a key that Config lacks raises
-TypeError, as the dataclass does there). The port serves on one card:
-``mesh_shape`` is kept for the CLIs' flags but nothing shards over it."""
+TypeError, as the dataclass does there). The port runs on one card:
+``mesh_shape`` is kept for the CLIs' flags but nothing shards over it.
+
+The values the JAX Config derives at construction (``curr_time``,
+``train_batch_size``, ``log_path``, ``model_checkpoint_path``) are plain
+attributes here, set the same way for one data-parallel device."""
 from __future__ import annotations
 
 import dataclasses
+import os
+from time import localtime, strftime
 from typing import Dict, Optional, Sequence, Tuple
 
 
@@ -138,6 +144,16 @@ class Config:
     debug_nans: bool = False
     profile_dir: Optional[str] = None
     rl_pipeline: bool = True
+
+    def __post_init__(self):
+        self.curr_time = strftime("%y%m%d%H%M%S", localtime())
+        self.train_batch_size = self.B
+        if self.to_log:
+            base = os.path.join(self.log_dir, self.procedure)
+            self.log_path = os.path.join(base, self.curr_time[2:])
+            self.model_checkpoint_path = self.log_path
+        else:
+            self.log_path = self.model_checkpoint_path = None
 
     def agent_kwargs(self, voc_size: int) -> Dict:
         """``BMHrlAgent`` arguments of this configuration."""

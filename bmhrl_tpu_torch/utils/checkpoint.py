@@ -1,18 +1,126 @@
-"""The reference's ``bm_hrl_agent.pt`` state dict <-> the flax-layout
-weight tree (the port's copy of the name map of
-bmhrl_tpu/utils/checkpoint.py, ``import_torch_bmhrl`` and
-``export_torch_bmhrl``). A tree goes into the port's ``BMHrlAgent`` through
-``weights.load_jax_params``.
+"""Checkpoints of the port's training state, and the reference's torch
+files (the port of bmhrl_tpu/utils/checkpoint.py):
 
-Orbax checkpoints are out of reach here (orbax imports JAX): trained
-weights come to the port as a reference-layout ``.pt``, which the JAX
-package writes with its own ``export_torch_bmhrl``."""
+- ``save_checkpoint`` / ``load_checkpoint``: the captioner's parameters,
+  both value nets' and the three ``GatedAdam`` states of
+  ``train.steps.TrainState``, one ``torch.save`` file per component in a
+  directory (the training loop's ``.../checkpoints/E_{n}/``);
+- ``load_torch_critic`` / ``install_critic``: the reference's pretrained
+  segment critic (``critic.cp``);
+- ``import_torch_bmhrl`` / ``export_torch_bmhrl``: the reference's
+  ``bm_hrl_agent.pt`` state dict <-> the flax-layout weight tree, which
+  goes into the port's ``BMHrlAgent`` through ``weights.load_jax_params``.
+
+Orbax checkpoints (the JAX package's own format) are out of reach here:
+orbax imports JAX. A directory that holds one is refused with a message;
+the JAX package's ``export_torch_bmhrl`` writes its weights as a ``.pt``."""
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import numpy as np
 import torch
+
+# the files of a port checkpoint, one per component
+COMPONENTS = ("cap_params", "wv_params", "mv_params", "cap_opt", "wv_opt",
+              "mv_opt")
+ORBAX_MESSAGE = ("{} holds a checkpoint of the JAX package (orbax), which "
+                 "the port cannot read: export its weights as a reference "
+                 ".pt with bmhrl_tpu.utils.checkpoint.export_torch_bmhrl")
+
+
+def refuse_orbax(ckpt_dir: str) -> None:
+    """Exit with a message when ``ckpt_dir`` is not a port checkpoint."""
+    if not all(os.path.exists(os.path.join(ckpt_dir, f"{c}.pt"))
+               for c in COMPONENTS):
+        raise SystemExit(ORBAX_MESSAGE.format(ckpt_dir)
+                         if os.path.isdir(os.path.join(ckpt_dir, "state"))
+                         else f"{ckpt_dir} is not a checkpoint of the port")
+
+
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def save_checkpoint(ckpt_dir: str, model, wv_model, mv_model, state) -> str:
+    """Write the modules' parameters and ``state`` (a ``TrainState``) into
+    ``ckpt_dir``; returns it."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    parts = {f"{k}_params": {n: _cpu(p) for n, p in m.named_parameters()}
+             for k, m in (("cap", model), ("wv", wv_model),
+                          ("mv", mv_model))}
+    for k in ("cap", "wv", "mv"):
+        opt = getattr(state, f"{k}_opt")
+        parts[f"{k}_opt"] = {
+            "count": dict(opt.count),
+            "mu": {n: _cpu(v) for n, v in opt.mu.items()},
+            "nu": {n: _cpu(v) for n, v in opt.nu.items()}}
+    for name, obj in parts.items():
+        tmp = os.path.join(ckpt_dir, f"{name}.pt.tmp")
+        torch.save(obj, tmp)
+        os.replace(tmp, os.path.join(ckpt_dir, f"{name}.pt"))
+    return ckpt_dir
+
+
+@torch.no_grad()
+def load_checkpoint(ckpt_dir: str, model, wv_model, mv_model, state):
+    """Copy a checkpoint's parameters into the modules (strict: every name
+    and shape) and return its ``TrainState``, on the modules' device, in the
+    structure of ``state``."""
+    from bmhrl_tpu_torch.train.optim import AdamState
+
+    refuse_orbax(ckpt_dir)
+
+    def read(name):
+        return torch.load(os.path.join(ckpt_dir, f"{name}.pt"),
+                          map_location="cpu", weights_only=True)
+
+    opts = {}
+    for k, m in (("cap", model), ("wv", wv_model), ("mv", mv_model)):
+        params = dict(m.named_parameters())
+        saved = read(f"{k}_params")
+        if set(saved) != set(params):
+            raise KeyError(f"{ckpt_dir}: {k} parameters differ: "
+                           f"{sorted(set(saved) ^ set(params))[:5]}")
+        for n, p in params.items():
+            if saved[n].shape != p.shape:
+                raise ValueError(f"{ckpt_dir}: {k} {n}: checkpoint "
+                                 f"{tuple(saved[n].shape)} vs model "
+                                 f"{tuple(p.shape)}")
+            p.copy_(saved[n])
+        opt, like = read(f"{k}_opt"), getattr(state, f"{k}_opt")
+        opts[f"{k}_opt"] = AdamState(
+            count={n: int(opt["count"][n]) for n in like.count},
+            mu={n: opt["mu"][n].to(v.device) for n, v in like.mu.items()},
+            nu={n: opt["nu"][n].to(v.device) for n, v in like.nu.items()})
+    return state._replace(**opts)
+
+
+def load_torch_critic(path: str) -> Dict[str, Any]:
+    """``critic.cp`` (the reference SegmentCritic's state dict) -> the flax
+    tree of the critic ``{"params": ...}`` (numpy arrays), which
+    ``weights.load_jax_params`` loads into the port's ``SegmentCritic``."""
+    sd = _load_state_dict(path)
+    out: Dict[str, Any] = {}
+    for kind, n in (("lstm", 4), ("gru", 2)):
+        for l in range(n):
+            out[f"{kind}_l{l}"] = {
+                k: sd[f"{kind}.{k}_l{l}"]
+                for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+    out["lin"] = {"kernel": sd["lin.weight"].T, "bias": sd["lin.bias"]}
+    for r in ("relu", "relu2"):
+        out[r] = {"alpha": sd[f"{r}.alpha"], "beta": sd[f"{r}.beta"]}
+    return {"params": out}
+
+
+def install_critic(model, critic_path: str):
+    """Overwrite the agent's critic with the pretrained weights of
+    ``critic_path``; returns the model."""
+    from bmhrl_tpu_torch.weights import load_jax_params
+
+    load_jax_params(model.critic, load_torch_critic(critic_path))
+    return model
 
 _MHA = ("linear_Q2d", "linear_K2d", "linear_V2d", "linear_d2Q")
 

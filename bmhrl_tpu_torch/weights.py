@@ -84,13 +84,16 @@ def random_jax_layout_params(dims: Dict, seed: int = 0) -> Dict:
     return random_module_params(cls(**dims, device="meta"), seed)
 
 
-def random_module_params(model: nn.Module, seed: int = 0) -> Dict:
+def random_module_params(model: nn.Module, seed: int = 0,
+                         flax_init: bool = False) -> Dict:
     """A random flax-layout tree for ``model`` (its parameters give the
     keys and shapes; a model on the "meta" device is enough). Scales follow
     the flax initialisers (lecun-normal kernels, unit-normal embedding,
-    torch-RNN uniform critic weights, AReLU and gate constants at their
-    init values); biases and LayerNorm parameters get small random values
-    so that a loader that drops them shows."""
+    torch-RNN uniform critic weights, AReLU constants at their init
+    values); biases, LayerNorm parameters and the fusion gate constant get
+    small random values so that a loader that drops them shows, or, with
+    ``flax_init``, the flax initialisers' values (zero biases and gate
+    constant, unit LayerNorm scale): the start of a training run."""
     rng = np.random.RandomState(seed)
     tree: Dict = {}
     for path, p, transposed in _flax_paths(model):
@@ -104,15 +107,16 @@ def random_module_params(model: nn.Module, seed: int = 0) -> Dict:
             bound = 1.0 / np.sqrt(max(shape[0] // 4, 1))
             arr = rng.uniform(-bound, bound, shape)
         elif leaf == "scale":
-            arr = 1.0 + 0.1 * rng.randn(*shape)
+            arr = np.ones(shape) if flax_init else 1.0 + 0.1 * rng.randn(
+                *shape)
         elif leaf == "bias":
-            arr = 0.02 * rng.randn(*shape)
+            arr = np.zeros(shape) if flax_init else 0.02 * rng.randn(*shape)
         elif leaf == "alpha":
             arr = np.full(shape, 0.9)
         elif leaf == "beta":
             arr = np.full(shape, 2.0)
         elif leaf == "a_v_constant":
-            arr = 0.5 * rng.randn(*shape)
+            arr = np.zeros(shape) if flax_init else 0.5 * rng.randn(*shape)
         else:
             raise KeyError(f"no initialiser for {'/'.join(path)}")
         node = tree

@@ -105,9 +105,12 @@ package is missing. Needs no network; stops every process it starts.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1371,7 +1374,6 @@ def write_train_tsv(path, n_words):
 def run_cli(main, argv):
     """``main(argv)`` with its printed lines captured, its launches counted
     (zeroed just before, read just after): (result, lines, launches)."""
-    import contextlib
     import io
 
     import torch
@@ -2182,6 +2184,382 @@ def phase_train(K):
     return sf, state, b16
 
 
+# --------------------------------------------------------------------------
+def write_loop_corpus(root, n_words=VOC - 4, clips=32, seed=0):
+    """A training corpus at the flagship's vocabulary: train captions of
+    ten words cover ``n_words`` distinct words (a vocabulary of n_words + 4
+    with the specials); the rows cycle over ``clips`` clips whose features
+    (256 video and 512 audio frames, cropped to their first half by the
+    rows' spans) give batches of Sv=128 and Sa=256, the bench's shapes; a
+    validation split of 32 rows with its reference JSON. Returns the paths
+    a Config needs."""
+    rng = np.random.RandomState(seed)
+    vdir, adir = os.path.join(root, "i3d"), os.path.join(root, "vggish")
+    os.makedirs(vdir)
+    os.makedirs(adir)
+    for c in range(clips):
+        for kind in ("rgb", "flow"):
+            np.save(os.path.join(vdir, f"c{c}_{kind}.npy"),
+                    rng.rand(256, 1024).astype(np.float32))
+        np.save(os.path.join(adir, f"c{c}.npy"),
+                rng.rand(512, 128).astype(np.float32))
+    words = [f"w{i}" for i in range(n_words)]
+    header = "video_id\tcaption\tstart\tend\tduration\tphase\tidx\n"
+    paths = {"video_features_path": vdir, "audio_features_path": adir,
+             "train": os.path.join(root, "train.csv"),
+             "val_1": os.path.join(root, "val_1.csv"),
+             "ref": os.path.join(root, "val_1_ref.json")}
+    with open(paths["train"], "w") as f:
+        f.write(header)
+        for j in range(0, n_words, 10):
+            f.write(f"c{(j // 10) % clips}\t{' '.join(words[j:j + 10])}\t"
+                    f"0.0\t5.0\t10.0\ttrain\t{j}\n")
+    refs = {}
+    with open(paths["val_1"], "w") as f:
+        f.write(header)
+        for j in range(32):
+            cap = " ".join(words[10 * j: 10 * j + 10])
+            f.write(f"c{j % clips}\t{cap}\t0.0\t5.0\t10.0\tval_1\t{j}\n")
+            refs.setdefault(f"c{j % clips}", {
+                "duration": 10.0, "timestamps": [], "sentences": []})
+            refs[f"c{j % clips}"]["timestamps"].append([0.0, 5.0])
+            refs[f"c{j % clips}"]["sentences"].append(cap)
+    with open(paths["ref"], "w") as f:
+        json.dump(refs, f)
+    return paths
+
+
+def loop_config(paths, **kw):
+    """The flagship's Config (bf16, random weights from seed 0) on a
+    corpus of ``write_loop_corpus``: B=16, the METEOR scorer, no pretrained
+    critic, no logging unless asked."""
+    from bmhrl_tpu_torch.config import Config
+
+    fields = dict(train_meta_path=paths["train"],
+                  val_1_meta_path=paths["val_1"],
+                  vatex_meta_path=paths["val_1"] + ".absent",
+                  msrvtt_meta_path=paths["val_1"] + ".absent",
+                  video_features_path=paths["video_features_path"],
+                  audio_features_path=paths["audio_features_path"],
+                  reference_paths=(paths["ref"],) * 4,
+                  rl_critic_path=paths["ref"] + ".absent", B=16,
+                  scorer="METEOR", to_log=False, seed=0)
+    fields.update(kw)
+    return Config(**fields)
+
+
+LOOP_STEPS = 8  # steps per epoch of the timed loop runs
+
+
+def loop_records(run, pipeline, data, out):
+    """One JSON line per trained epoch of a loop run: ms/step through the
+    loop (median), the StepTimer split (mean ms per phase), kernel launches
+    per step, the scorer's path and ms per batch."""
+    for r in out["epochs"]:
+        t = r["timer"]
+        emit({"phase": "train_loop", "run": run, "rl_pipeline": pipeline,
+              "data": data, "epoch": r["epoch"], "what": r["phase"], "steps": r["steps"],
+              "loss": r["loss"], "ms_per_step": t["step"]["p50_ms"],
+              "split_mean_ms": {k: v["mean_ms"] for k, v in t.items()},
+              "launches_per_step": {k: v / r["steps"]
+                                    for k, v in r["launches"].items()},
+              "scorer_path": r["scorer_path"],
+              "host_score_ms": t["host_score"]["mean_ms"],
+              "METEOR": r.get("METEOR")})
+
+
+def params_and_state(sf, state):
+    """Every tensor of a trainer (parameters, Adam moments) and the Adam
+    counts, copied to the host."""
+    out = {}
+    for k, m in (("cap", sf.model), ("wv", sf.wv_model),
+                 ("mv", sf.mv_model)):
+        out.update({f"{k}.{n}": p.detach().cpu().clone()
+                    for n, p in m.named_parameters()})
+        opt = getattr(state, f"{k}_opt")
+        out.update({f"{k}_opt.mu.{n}": v.cpu().clone()
+                    for n, v in opt.mu.items()})
+        out.update({f"{k}_opt.nu.{n}": v.cpu().clone()
+                    for n, v in opt.nu.items()})
+        out[f"{k}_opt.count"] = dict(opt.count)
+    return out
+
+
+def assert_same_tensors(what, a, b):
+    import torch
+
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: different tensors")
+    bad = [k for k in a if (a[k] != b[k] if isinstance(a[k], dict)
+                            else not torch.equal(a[k], b[k]))]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} differ, e.g. {bad[:3]}")
+
+
+def hand_steps(cfg, steps, train_worker=None):
+    """Epoch 0 of ``cfg`` by calling the steps by hand in the reference's
+    order (each step's host score and update before the next step), with
+    the loop's seeds and batches. ``train_worker`` None: a warmstart
+    epoch."""
+    import torch
+
+    from bmhrl_tpu_torch.data.dataset import CaptioningDataset
+    from bmhrl_tpu_torch.train.loop import make_step_factory, step_seed
+    from bmhrl_tpu_torch.train.rewards import make_scorer
+
+    ds = CaptioningDataset(cfg, "train")
+    sf, state = make_step_factory(cfg, ds.train_vocab, "cuda")
+    scorer = make_scorer(cfg.scorer, ds.train_vocab.itos,
+                         ds.train_vocab.token_lists, cfg.rl_gamma_worker,
+                         cfg.rl_gamma_manager)
+
+    def dev(x):
+        return torch.from_numpy(x).to("cuda")
+
+    for i, batch in enumerate(ds.batches(0)):
+        if i == steps:
+            break
+        b = {k: dev(batch[k]) for k in ("rgb", "flow", "audio")}
+        b["caption_idx"] = dev(batch["caption_idx"]).long()
+        seed = step_seed(cfg.seed, 0, i)
+        if train_worker is None:
+            state, _, aux = sf.warmstart_step(state, b, seed,
+                                              cfg.rl_cap_warmstart_lr)
+            w, m, _ = scorer.delta_both(
+                aux["argmax"].cpu().numpy(), batch["captions"],
+                aux["token_mask"].cpu().numpy(), aux["seg"].cpu().numpy())
+            state, _ = sf.value_warmstart_step(
+                state, aux["wf"], aux["mf"], dev(w), dev(m),
+                aux["token_mask"], aux["seg"])
+        else:
+            roll = sf.rl_rollout(state, b, seed, train_worker)
+            score, _ = scorer.delta_worker(roll["sampled"].cpu().numpy(),
+                                           batch["captions"])
+            state, _ = sf.rl_update(state, b, seed, cfg.rl_cap_lr, roll,
+                                    dev(score), train_worker)
+    torch.cuda.synchronize()
+    return params_and_state(sf, state)
+
+
+def loop_gates(paths, root):
+    """With rl_pipeline off, one warmstart epoch and one worker epoch of
+    the loop leave bit for bit the tensors of the steps called by hand;
+    auto-resume restores every tensor of a checkpoint and continues at the
+    next epoch in its phase."""
+    import torch
+
+    from bmhrl_tpu_torch.train.loop import train_rl_cap
+    from bmhrl_tpu_torch.utils import checkpoint
+
+    steps = 3
+    for ws, tw in ((1, None), (0, True)):
+        cfg = loop_config(paths, epoch_num=1, rl_warmstart_epochs=ws,
+                          one_by_one_starts_at=1, rl_pipeline=False)
+        out = train_rl_cap(cfg, max_steps_per_epoch=steps, device="cuda")
+        got = params_and_state(out["step_factory"], out["state"])
+        del out
+        want = hand_steps(cfg, steps, tw)
+        assert_same_tensors(f"loop vs hand-called steps (warmstart epochs "
+                            f"{ws})", got, want)
+        emit({"phase": "train_loop", "gate": "loop = hand-called steps",
+              "epoch": "warmstart" if tw is None else "worker",
+              "steps": steps, "tensors": len(got), "equal": True})
+        del got, want
+        torch.cuda.empty_cache()
+
+    # a worker epoch, its checkpoint, then a restore and the next epoch
+    log_dir = os.path.join(root, "log")
+    cfg = loop_config(paths, epoch_num=1, rl_warmstart_epochs=0,
+                      one_by_one_starts_at=5, to_log=True, log_dir=log_dir)
+    saved = {}
+    real_save = checkpoint.save_checkpoint
+
+    def spy(path, model, wv, mv, state):
+        t0 = time.perf_counter()
+        real_save(path, model, wv, mv, state)
+        saved[os.path.basename(path)] = time.perf_counter() - t0
+
+    with mock.patch.object(checkpoint, "save_checkpoint", spy):
+        out = train_rl_cap(cfg, max_steps_per_epoch=steps, device="cuda")
+    trained = params_and_state(out["step_factory"], out["state"])
+    del out
+    back = train_rl_cap(cfg.replace(auto_resume=True), device="cuda")
+    if back["start_epoch"] != 1 or back["epochs"] or set(saved) != {"E_0"}:
+        raise AssertionError(f"auto-resume: start {back['start_epoch']}, "
+                             f"saved {sorted(saved)}")
+    assert_same_tensors("auto-resume", params_and_state(
+        back["step_factory"], back["state"]), trained)
+    del back
+    more = train_rl_cap(cfg.replace(auto_resume=True, epoch_num=2),
+                        max_steps_per_epoch=steps, device="cuda")
+    nxt = [(r["epoch"], r["phase"]) for r in more["epochs"]]
+    if nxt != [(1, "manager")]:
+        raise AssertionError(f"auto-resume continued with {nxt}")
+    emit({"phase": "train_loop", "gate": "auto-resume",
+          "tensors": len(trained), "restored_equal": True,
+          "continued": nxt, "checkpoint_save_s": saved["E_0"]})
+    del more, trained
+    shutil.rmtree(log_dir)
+    torch.cuda.empty_cache()
+
+
+def learning_proof(root, epochs=24, warmstart=8):
+    """The port's synthetic_proof procedure at the flagship's width: the
+    held-out METEOR after training against the untrained model's (mode
+    eval on the same init). Logging (checkpoints, submissions) is off."""
+    from types import SimpleNamespace
+
+    from bmhrl_tpu_torch.cli.synthetic_proof import build_config
+    from bmhrl_tpu_torch.train.loop import train_rl_cap
+    from bmhrl_tpu_torch.utils.synthetic import generate
+
+    paths = generate(os.path.join(root, "syn"), clips_per_class=16,
+                     val_per_class=2, noise=0.4, seed=0)
+    args = SimpleNamespace(small=False, B=16, mesh_data=1, scorer="CIDER",
+                           epochs=epochs, warmstart=warmstart, eval_from=0,
+                           seed=0, out=os.path.join(root, "syn"))
+    cfg = build_config(paths, args).replace(to_log=False)
+    base = train_rl_cap(cfg.replace(mode="eval"), device="cuda")
+    base = base["val_1"]["METEOR"]
+    t0 = time.perf_counter()
+    out = train_rl_cap(cfg, device="cuda")
+    seconds = time.perf_counter() - t0
+    margin = out["best_metric"] - base
+    emit({"phase": "train_loop", "what": "synthetic proof", "epochs": epochs,
+          "warmstart_epochs": warmstart, "seconds": seconds,
+          "untrained_METEOR": base, "best_METEOR": out["best_metric"],
+          "margin": margin,
+          "METEOR_by_epoch": [r.get("METEOR") for r in out["epochs"]],
+          "loss_by_epoch": [r["loss"] for r in out["epochs"]]})
+    if not margin > 0:
+        raise AssertionError(f"synthetic proof: best METEOR "
+                             f"{out['best_metric']} <= untrained {base}")
+
+
+def phase_train_loop(K):
+    """The training loop at the flagship's width (its timed runs, the
+    first one the main path with launches counted), its gates and the
+    learning proof. Returns the corpus paths for the profile phase."""
+    import torch
+
+    from bmhrl_tpu_torch.data.dataset import CaptioningDataset
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.train.loop import train_rl_cap
+
+    root = tempfile.mkdtemp()
+    paths = write_loop_corpus(root)
+    cfg = loop_config(paths, epoch_num=4, rl_warmstart_epochs=1,
+                      one_by_one_starts_at=3)
+    # the same batches, read before the run: the loop without its feature
+    # files and their loading thread
+    ds = CaptioningDataset(cfg, "train")
+    ahead = {e: list(itertools.islice(ds.batches(e), LOOP_STEPS))
+             for e in range(cfg.epoch_num)}
+    real_batches = CaptioningDataset.batches
+
+    def read_ahead(self, epoch, *args, **kw):
+        if self.phase == "train":
+            return iter(ahead[epoch])
+        return real_batches(self, epoch, *args, **kw)
+
+    runs = [(True, "files"), (False, "files"), (True, "files"),
+            (False, "files"), (True, "read ahead"), (False, "read ahead"),
+            (False, "read ahead"), (True, "read ahead")]
+    for run, (pipeline, data) in enumerate(runs):
+        torch.cuda.synchronize()
+        if run == 0:
+            _cuda.reset_launches()
+        t0 = time.perf_counter()
+        with (mock.patch.object(CaptioningDataset, "batches", read_ahead)
+              if data == "read ahead" else contextlib.nullcontext()):
+            out = train_rl_cap(cfg.replace(rl_pipeline=pipeline),
+                               max_steps_per_epoch=LOOP_STEPS,
+                               device="cuda")
+        torch.cuda.synchronize()
+        if run == 0:
+            launches = dict(_cuda.LAUNCHES)
+            for name, n in launches.items():
+                K[name].rec["launches_train_loop"] = n
+            # the bf16 path: every tensor-core kernel and both cells
+            # (validation decodes through the folded kernel), no CUDA-core
+            # route
+            bad = {n: v for n, v in launches.items()
+                   if (v <= 0) != n.endswith("_simt")}
+            if bad:
+                raise AssertionError(f"training loop launches: {launches}")
+            emit({"phase": "train_loop", "main_path_launches": launches})
+        emit({"phase": "train_loop", "run": run, "rl_pipeline": pipeline,
+              "data": data, "seconds": time.perf_counter() - t0,
+              "val_METEOR": out["best_metric"]})
+        loop_records(run, pipeline, data, out)
+        paths_ok = {r["scorer_path"] for r in out["epochs"]}
+        if paths_ok != {"native"}:
+            raise AssertionError(f"reward scorer paths: {paths_ok}")
+        del out
+        torch.cuda.empty_cache()
+    loop_gates(paths, root)
+    learning_proof(root)
+    return paths
+
+
+def span_busy(prof, prefix):
+    """Per record_function span whose name starts with ``prefix``: its wall
+    ms and the device ms of the kernels that ran inside it."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+             if e.name.startswith(prefix) and e.device_type != cuda]
+    # the device's kernels and copies; a record_function span also shows
+    # on the device's timeline (a user annotation), which is not work
+    work = sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == cuda
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.name.startswith(prefix))
+    out = []
+    for name, s, t in sorted(spans, key=lambda x: x[1]):
+        busy, last, n = 0.0, s, 0
+        for a, b in work:  # the union of the intervals inside [s, t]
+            n += s <= a < t
+            a, b = max(a, last, s), min(b, t)
+            if b > a:
+                busy += b - a
+                last = b
+        out.append((name, (t - s) / 1e3, busy / 1e3, n))
+    return out
+
+
+def profile_train_loop(paths):
+    """The device's idle share of each epoch of a timed loop run (pipeline
+    on) under torch.profiler: 1 - (device busy time inside the epoch's
+    span) / (the span's wall time), with the device launches per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bmhrl_tpu_torch.train.loop import train_rl_cap
+
+    cfg = loop_config(paths, epoch_num=4, rl_warmstart_epochs=1,
+                      one_by_one_starts_at=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = train_rl_cap(cfg, max_steps_per_epoch=LOOP_STEPS,
+                           device="cuda")
+        torch.cuda.synchronize()
+    spans = span_busy(prof, "train_loop/epoch_")
+    for (name, wall, busy, n), r in zip(spans, out["epochs"]):
+        emit({"phase": "profile", "what": "training loop epoch",
+              "epoch": r["epoch"], "phase_name": r["phase"],
+              "steps": r["steps"], "wall_ms": wall, "device_busy_ms": busy,
+              "device_idle_share": (1 - busy / wall) if busy else None,
+              "device_launches_per_step": n / r["steps"],
+              "ms_per_step": r["timer"]["step"]["p50_ms"],
+              "note": None if busy else "not measured: no device time "
+                                        "traced"})
+    shutil.rmtree(os.path.dirname(paths["train"]))
+
+
 def profile_train(sf, state, batch):
     """Device time of one B=16 warmstart step by kernel group, and the
     device's busy share of the step's wall time."""
@@ -2277,11 +2655,14 @@ def main() -> int:
               ("decode_modes", lambda: phase_decode_modes(K, made["serve"])),
               ("entry_points", lambda: phase_entry_points(K, made["serve"])),
               ("train", lambda: made.update(train=phase_train(K))),
+              ("train_loop",
+               lambda: made.update(train_loop=phase_train_loop(K))),
               # the profiler runs last: once it has traced, the host
               # launches more slowly
               ("profile", lambda: (profile_decode(made["serve"]),
                                    profile_decode(made["serve"], 64, 4),
-                                   profile_train(*made["train"]))))
+                                   profile_train(*made["train"]),
+                                   profile_train_loop(made["train_loop"]))))
     for name, phase in phases:
         t0 = time.perf_counter()
         log(f"chip_smoke: phase {name}")

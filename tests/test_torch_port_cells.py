@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_common import BOS, DIMS, EOS, PAD, features, to_torch
 
 from bmhrl_tpu.models.critic import SegmentCritic as JCritic

@@ -14,6 +14,7 @@ arithmetic, so only f32 rounding in another order remains.
 import numpy as np
 import pytest
 import torch
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 from bmhrl_tpu_torch.ops import attention as att
 

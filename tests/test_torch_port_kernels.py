@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_common import jax_kernels
 
 from bmhrl_tpu.ops import attention as jfused
@@ -268,7 +269,8 @@ def _port_files():
 def test_port_imports_no_jax(path):
     """The port and chip_smoke.py import neither JAX/flax nor the JAX
     package, not even its JAX-free modules, nor the JAX CLIs (the top-level
-    ``cli`` package)."""
+    ``cli`` package), nor NLTK (the port stems with its own
+    ``eval.porter`` and runs where NLTK is not installed)."""
     tree = ast.parse(path.read_text())
     names = []
     for node in ast.walk(tree):
@@ -278,7 +280,7 @@ def test_port_imports_no_jax(path):
             names.append(node.module)
     bad = [n for n in names if n.split(".")[0] in ("jax", "flax", "jaxlib",
                                                    "optax", "bmhrl_tpu",
-                                                   "cli")]
+                                                   "cli", "nltk")]
     assert not bad, f"{path}: imports {bad}"
 
 

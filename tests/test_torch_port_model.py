@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_common import (B, DIMS, SA, SV, features, jax_agent,
                                jax_kernels, jax_tree, to_torch, torch_agent)
 

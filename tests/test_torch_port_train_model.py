@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_common import (DIMS, features, jax_agent, jax_kernels,
                                jax_tree, to_torch, torch_agent)
 from torch_port_train_common import (RecordingDraws, caption_batch,

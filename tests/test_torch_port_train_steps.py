@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_common import jax_agent, jax_kernels, jax_tree
 from torch_port_train_common import (D, LC, PAD, VOC, RecordingDraws,
                                      assert_params_close, caption_batch,

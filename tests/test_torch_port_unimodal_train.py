@@ -5,12 +5,14 @@ package's step composed from its own functions (``model.apply`` with
 dropout and exploration on, the label-smoothing loss,
 ``jax.value_and_grad``, global-norm clipping, ``GatedAdam`` under the
 warmstart ``phase_mask``), the port's dropout masks and exploration
-normals fed to JAX and JAX's synonym draws to the port.
+normals fed to JAX and JAX's synonym draws to the port; and an AHRL
+worker-phase ``rl_rollout`` + ``rl_update`` against the JAX composition of
+tests/test_torch_port_train_rl.py, JAX's sample fed to the port.
 
-Tolerances, as tests/test_torch_port_train_steps.py: the forward's
-log-probs and features 1e-5 absolute, the loss 1e-5 relative, every
-updated parameter 1e-5 absolute; segment labels and the argmax tokens
-exact."""
+Tolerances, as tests/test_torch_port_train_steps.py and _train_rl.py:
+the forward's log-probs and features 1e-5 absolute, the loss 1e-5
+relative, every updated parameter 1e-5 absolute; segment labels, the
+argmax tokens and the sample exact."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,9 +23,11 @@ from torch_port_common import features, jax_kernels, jax_tree, to_torch
 from torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_train_common import (D, PAD, RecordingDraws,
                                      assert_params_close, caption_batch,
-                                     fed_draws, jax_inputs, port_batch,
-                                     step_batch)
+                                     fed_draws, jax_inputs, jax_rl_steps,
+                                     port_batch, step_batch)
 
+from bmhrl_tpu.models.bmhrl import BMManagerValueFunction as JMV
+from bmhrl_tpu.models.bmhrl import BMWorkerValueFunction as JWV
 from bmhrl_tpu.models.unimodal import UnimodalAgent as JUnimodalAgent
 from bmhrl_tpu.ops.masking import make_masks as jmake_masks
 from bmhrl_tpu.train import losses as JL
@@ -152,3 +156,59 @@ def _assert_groups_match_jax(model, tree):
         assert groups[named[id(p)]] == node, (path, node)
     assert set(groups.values()) == {"frozen", "embedding", "worker",
                                     "manager"}
+
+
+def test_ahrl_worker_rl_step_matches_jax():
+    cfg = Config(B=3)
+    tree = uni_tree("audio")
+    model = load_jax_params(UnimodalAgent(**UNI, modality="audio",
+                                          dtype=torch.float32, device="cpu"),
+                            tree)
+    wv = BMWorkerValueFunction(D, device="cpu")
+    mv = BMManagerValueFunction(D, device="cpu")
+    v_trees = [random_module_params(net, 6 + i)
+               for i, net in enumerate((wv, mv))]
+    for net, t in zip((wv, mv), v_trees):
+        load_jax_params(net, t)
+    sf = StepFactory(cfg, model, wv, mv, emb_trainable=True)
+    state = sf.init_state()
+    f, cap = step_batch(2)
+    batch = port_batch(f, cap)
+    jin, syn = jax_inputs(f, cap, jax.random.PRNGKey(2))
+    seed = 13
+    jp, jwv, jmv = jax_tree(tree), jax_tree(v_trees[0]), jax_tree(v_trees[1])
+    with jax_kernels(flash=True):
+        steps = jax_rl_steps(JUnimodalAgent(**UNI, modality="audio",
+                                            dtype=jnp.float32),
+                             JWV(D), JMV(D), cfg)
+        first = RecordingDraws(seed, synonym=syn)
+        sf.rl_rollout(state, batch, seed, True, draws=first)
+        jroll = steps["rollout"](jp, jwv, jmv, jin, first.keeps,
+                                 first.normals, jax.random.PRNGKey(8), True)
+        draws = RecordingDraws(seed, synonym=syn, sampled=jroll["sampled"])
+        roll = sf.rl_rollout(state, batch, seed, True, draws=draws)
+        for k in ("sampled", "seg", "loss_mask"):
+            np.testing.assert_array_equal(roll[k].numpy(),
+                                          np.asarray(jroll[k]), err_msg=k)
+        for k in ("sampled_probs", "expected_value"):
+            np.testing.assert_allclose(roll[k].numpy(), np.asarray(jroll[k]),
+                                       rtol=0, atol=PARAM_TOL, err_msg=k)
+        score = np.random.RandomState(3).rand(*cap[:, 1:].shape).astype(
+            np.float32)
+        upd = RecordingDraws(seed, synonym=syn)
+        lr = cfg.rl_cap_lr
+        state, metrics = sf.rl_update(state, batch, seed, lr, roll,
+                                      torch.from_numpy(score), True,
+                                      draws=upd)
+        jopt = joptim.GatedAdam(0.9, 0.999, cfg.eps).init(jp)
+        vopt = joptim.GatedAdam(0.9, 0.999, 1e-8).init(jwv)
+        jroll_port = {k: jnp.asarray(v.numpy()) for k, v in roll.items()}
+        jp, jv, jloss, jvloss, _ = steps["update"](
+            jp, jwv, jopt, vopt, jin, upd.keeps, upd.normals, lr, jroll_port,
+            jnp.asarray(score), True)
+    np.testing.assert_allclose(metrics["loss"].item(), float(jloss),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(metrics["value_loss"].item(), float(jvloss),
+                               rtol=LOSS_RTOL)
+    assert_params_close(sf.model, jp, PARAM_TOL)
+    assert_params_close(sf.wv_model, jv, PARAM_TOL)

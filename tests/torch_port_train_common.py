@@ -222,3 +222,90 @@ def jax_inputs(f, cap, key):
     masks = make_masks({"rgb": jf["rgb"], "audio": jf["audio"]}, x_idx,
                        "audio_video", PAD)
     return (jf["rgb"] + jf["flow"], jf["audio"], x_idx, y_idx, masks), syn
+
+
+def jax_rl_steps(model, wv, mv, cfg):
+    """rl_rollout and rl_update of the JAX package's StepFactory for the
+    flax agent ``model``, composed from the package's functions (the
+    forward with fed draws, the biased KL, ``GatedAdam`` under the phase's
+    ``phase_mask``, the value-net regression), jitted."""
+    from bmhrl_tpu.ops import segments as jseg
+    from bmhrl_tpu.train import losses as JL
+    from bmhrl_tpu.train import optim as joptim
+    from bmhrl_tpu.train.steps import LOSS_FACTOR
+    from bmhrl_tpu.train.steps import param_groups as jparam_groups
+    from bmhrl_tpu.train.steps import phase_mask as jphase_mask
+
+    def forward(params, inputs, keeps, normals, train_worker):
+        V, A, x_idx, _, masks = inputs
+        with fed_draws(keeps, normals):
+            return model.apply(params, (V, A), x_idx, masks,
+                               exploration=not train_worker,
+                               deterministic=False,
+                               rngs={"noise": jax.random.PRNGKey(0),
+                                     "dropout": jax.random.PRNGKey(0)})
+
+    def rollout(params, wv_p, mv_p, inputs, keeps, normals, r_samp,
+                train_worker):
+        pred, wf, mf, goals, seg = jax.lax.stop_gradient(
+            forward(params, inputs, keeps, normals, train_worker))
+        if train_worker:
+            sampled = jax.random.categorical(r_samp, pred, axis=-1)
+        else:
+            sampled = jnp.argmax(pred, axis=-1)
+        sampled = sampled.astype(jnp.int32)
+        probs = jnp.take_along_axis(jnp.exp(pred), sampled[..., None],
+                                    axis=-1)[..., 0]
+        ev = (wv.apply(wv_p, (wf, goals)) if train_worker
+              else mv.apply(mv_p, mf))[..., 0]
+        return {"sampled": sampled, "sampled_probs": probs,
+                "expected_value": ev, "seg": seg,
+                "loss_mask": inputs[3] != PAD}
+
+    def update(params, v_p, opt, v_opt, inputs, keeps, normals, lr, roll,
+               score, train_worker):
+        y_idx = inputs[3]
+        loss_mask = y_idx != PAD
+        n_tokens = loss_mask.sum()
+        Lc = y_idx.shape[1]
+        sampled, sampled_probs = roll["sampled"], roll["sampled_probs"]
+        expected_value, seg0 = roll["expected_value"], roll["seg"]
+        if train_worker:
+            norm_factor = loss_mask.sum(-1, keepdims=True).astype(
+                jnp.float32)
+        else:
+            norm_factor = seg0.sum(-1, keepdims=True).astype(jnp.float32)
+            score = score * seg0.astype(jnp.float32)
+            log_p = jnp.log(jnp.clip(sampled_probs, 1e-30))
+            sampled_probs = jnp.exp(jseg.segment_sum_expand(log_p, seg0))
+            nb = jseg.next_boundary(seg0)
+            sampled_probs = jnp.where(nb < Lc, sampled_probs, 0.0)
+            expected_value = jseg.segment_sum_expand(expected_value, seg0)
+        if cfg.rl_stabilize:
+            score = (score - expected_value) * loss_mask.astype(jnp.float32)
+        amplitude = jnp.clip(score * sampled_probs * norm_factor, 0.0, 1.0)
+
+        def cap_loss_fn(p):
+            pred, wf, mf, goals, seg = forward(p, inputs, keeps, normals,
+                                               train_worker)
+            div = JL.biased_kl(pred, y_idx, sampled, amplitude, 0.7, PAD)
+            return jnp.sum(div) / (n_tokens * LOSS_FACTOR), (wf, mf)
+
+        (cap_loss, (wf, mf)), grads = jax.value_and_grad(
+            cap_loss_fn, has_aux=True)(params)
+        phase = "worker" if train_worker else "manager"
+        mask = jphase_mask(jparam_groups(params), phase, True)
+        params, opt = joptim.GatedAdam(cfg.betas[0], cfg.betas[1], cfg.eps,
+                                       cfg.weight_decay).update(
+            grads, opt, params, mask, lr)
+        vmask = (loss_mask if train_worker else seg0).astype(jnp.float32)
+        net, feat = (wv, (wf, None)) if train_worker else (mv, mf)
+        v_l, v_g = jax.value_and_grad(lambda p: JL.masked_mse(
+            net.apply(p, feat)[..., 0], score, vmask))(v_p)
+        v_p, v_opt = joptim.GatedAdam(cfg.betas[0], cfg.betas[1], 1e-8,
+                                      0.0).update(
+            v_g, v_opt, v_p, True, cfg.rl_value_function_lr)
+        return params, v_p, cap_loss, v_l, jnp.sum(score)
+
+    return {"rollout": jax.jit(rollout, static_argnums=7),
+            "update": jax.jit(update, static_argnums=10)}
