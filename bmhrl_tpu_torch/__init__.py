@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of bmhrl_tpu for NVIDIA Hopper: caption serving
 (greedy, beam search and sampling; ``serve.CaptionServer`` and the CLIs
 ``cli.serve_captions`` and ``cli.single_video``, with weights from a
-reference ``.pt``, ``utils.checkpoint``) of the bimodal hierarchical
-captioner (BMHRL) and its unimodal ablations (AHRL, VHRL), and their
-training (the steps ``train.steps.StepFactory`` and the loop
-``train.loop.train_rl_cap``, run by the CLIs ``cli.run_training`` and
-``cli.synthetic_proof``).
+reference ``.pt`` or from the port's own checkpoints,
+``utils.checkpoint``) of the bimodal hierarchical captioner (BMHRL), its
+unimodal ablations (AHRL, VHRL) and the DETR captioner
+(``models.detr``), and their training (the steps
+``train.steps.StepFactory`` and ``train.steps_detr.DetrStepFactory``, the
+loop ``train.loop.train_rl_cap``, run by the CLIs ``cli.run_training`` and
+``cli.synthetic_proof``; the critic's pretraining, ``cli.train_critic``).
 
 The JAX package ``bmhrl_tpu`` is the reference and is never imported here.
 Entry points take a ``device`` argument: ``"cuda"`` by default (an error

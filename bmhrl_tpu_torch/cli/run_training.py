@@ -5,8 +5,10 @@ and run ``train.loop.train_rl_cap``.
     python -m bmhrl_tpu_torch.cli.run_training --mode BMHRL --scorer CIDER \\
         --B 16 [--device cuda]
 
-``--mode DETR`` and ``--mode verbose`` and a mesh of more than one device
-exit "not ported yet"; ``--rl_pretrained_model_dir`` and ``--auto_resume``
+``--mode DETR`` trains the DETR captioner (``--with_reinforce``,
+``--pre_goal_attention``), ``--mode verbose`` runs the loss-decomposition
+pass; a mesh of more than one device exits "not ported yet";
+``--rl_pretrained_model_dir`` and ``--auto_resume``
 read the port's own checkpoints (a JAX run's orbax directory exits with a
 message).
 """

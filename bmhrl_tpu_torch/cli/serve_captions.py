@@ -7,14 +7,16 @@ flag).
         --video_features_path DIR --audio_features_path DIR \\
         --train_meta_path ./data/train.csv \\
         --torch_checkpoint bm_hrl_agent.pt --out submission.json \\
-        [--batch_size 256] [--device cuda]
+        [--mode BMHRL|DETR|AHRL|VHRL] [--batch_size 256] [--device cuda]
 
-Weights come from a reference-layout ``.pt`` (``--torch_checkpoint``; the
-JAX package writes one from a trained tree with its
-``export_torch_bmhrl``); without one the model has random weights.
-``--checkpoint_dir`` (orbax), ``--mesh`` > 1 and the AOT bundle flags are
-not ported yet and exit with a message. Prints one JSON stats line
-(clips/s, latency percentiles, shape count) and returns the stats.
+Weights come from a training checkpoint of the port (``--checkpoint_dir``,
+a ``run_training`` run's ``.../checkpoints/E_{n}``; every mode) or from a
+reference-layout ``.pt`` (``--torch_checkpoint``, BMHRL; the JAX package
+writes one from a trained tree with its ``export_torch_bmhrl``); without
+either the model has random weights. An orbax directory (the JAX
+package's checkpoints), ``--mesh`` > 1 and the AOT bundle flags exit with
+a message. Prints one JSON stats line (clips/s, latency percentiles, shape
+count) and returns the stats.
 """
 from __future__ import annotations
 
@@ -22,11 +24,6 @@ import argparse
 import json
 
 NOT_PORTED = {
-    "checkpoint_dir": "--checkpoint_dir is not ported yet: orbax "
-                      "checkpoints need JAX. Export the trained weights as a "
-                      "reference .pt with the JAX package's "
-                      "bmhrl_tpu.utils.checkpoint.export_torch_bmhrl and pass "
-                      "--torch_checkpoint",
     "mesh": "--mesh > 1 is not ported yet: the port serves on one card",
     "export_bundle": "--export_bundle is not ported yet",
     "from_bundle": "--from_bundle is not ported yet",
@@ -34,29 +31,45 @@ NOT_PORTED = {
 
 
 def refuse_unported(args) -> None:
-    """Exit with a "not ported yet" message for a flag the port lacks."""
+    """Exit with a message for a flag the port lacks, for two sources of
+    weights at once, and for a ``--checkpoint_dir`` that is not a
+    checkpoint of the port."""
+    from bmhrl_tpu_torch.utils.checkpoint import refuse_orbax
+
     for flag, msg in NOT_PORTED.items():
         value = getattr(args, flag, None)
         if value is not None and (flag != "mesh" or value > 1):
             raise SystemExit(msg)
+    if getattr(args, "checkpoint_dir", None):
+        if args.torch_checkpoint:
+            raise SystemExit("--checkpoint_dir and --torch_checkpoint are "
+                             "two sources of weights: give one")
+        refuse_orbax(args.checkpoint_dir)
 
 
-def load_captioner(cfg, voc_size: int, torch_checkpoint, device):
+def load_captioner(cfg, voc_size: int, torch_checkpoint, device,
+                   checkpoint_dir=None):
     """The captioner of ``cfg.mode`` on ``device``, in eval mode: weights
-    from a reference ``.pt`` (BMHRL only, as in the JAX CLIs) or random
-    ones from seed 0 with the flax initialisers' scales."""
+    from a reference ``.pt`` (BMHRL only, as in the JAX CLIs), from the
+    port's training checkpoint ``checkpoint_dir``, or random ones from
+    seed 0 with the flax initialisers' scales."""
     from bmhrl_tpu_torch.train.loop import build_model
-    from bmhrl_tpu_torch.utils.checkpoint import import_torch_bmhrl
+    from bmhrl_tpu_torch.utils.checkpoint import (import_torch_bmhrl,
+                                                  load_model_params)
     from bmhrl_tpu_torch.weights import load_jax_params, random_module_params
 
     model = build_model(cfg, voc_size, device)
     if torch_checkpoint:
         if cfg.mode != "BMHRL":
             raise SystemExit(f"--torch_checkpoint unsupported for {cfg.mode}")
-        tree = import_torch_bmhrl(torch_checkpoint, cfg.rl_att_layers)
+        load_jax_params(model, import_torch_bmhrl(torch_checkpoint,
+                                                  cfg.rl_att_layers))
+    elif checkpoint_dir:
+        load_model_params(checkpoint_dir, model)
+        print(f"restored {checkpoint_dir}")
     else:
-        tree = random_module_params(model, seed=0)
-    return load_jax_params(model, tree).eval().requires_grad_(False)
+        load_jax_params(model, random_module_params(model, seed=0))
+    return model.eval().requires_grad_(False)
 
 
 def main(argv=None):
@@ -75,7 +88,8 @@ def main(argv=None):
                    help="vocab source (must match training)")
     p.add_argument("--glove_path", default=None)
     p.add_argument("--checkpoint_dir", default=None,
-                   help="orbax TrainState dir (not ported yet)")
+                   help="a training checkpoint of the port "
+                        "(.../checkpoints/E_n)")
     p.add_argument("--torch_checkpoint", default=None,
                    help="reference bm_hrl_agent.pt; random init if omitted")
     p.add_argument("--mode", default="BMHRL",
@@ -134,7 +148,7 @@ def main(argv=None):
     vocab = build_vocab_from_tsv(cfg.train_meta_path, cfg.min_freq_caps,
                                  cfg.glove_path, cfg.d_model_caps)
     model = load_captioner(cfg, len(vocab), args.torch_checkpoint,
-                           args.device)
+                           args.device, args.checkpoint_dir)
     server = CaptionServer(cfg, model, vocab.itos, device=args.device,
                            beam_width=args.beam_width,
                            length_penalty=args.length_penalty,

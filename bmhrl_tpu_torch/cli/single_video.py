@@ -6,10 +6,13 @@ load the features from three .npy files, decode one caption.
         --rgb women_long_jump_rgb.npy --flow women_long_jump_flow.npy \\
         --audio women_long_jump_vggish.npy \\
         --train_meta_path ./data/train.csv \\
-        [--torch_checkpoint bm_hrl_agent.pt] [--device cuda]
+        [--torch_checkpoint bm_hrl_agent.pt | --checkpoint_dir RUN/E_n] \\
+        [--mode BMHRL|DETR|AHRL|VHRL] [--device cuda]
 
-Prints the sentence and returns it. ``--checkpoint_dir`` (orbax) is not
-ported yet and exits with a message.
+Prints the sentence and returns it. ``--checkpoint_dir`` reads a training
+checkpoint of the port (an orbax directory exits with a message);
+``--mode`` (the port's addition; the JAX CLI serves BMHRL only) picks the
+family.
 """
 from __future__ import annotations
 
@@ -26,7 +29,10 @@ def main(argv=None):
     p.add_argument("--audio", required=True)
     p.add_argument("--train_meta_path", default="./data/train.csv")
     p.add_argument("--checkpoint_dir", default=None,
-                   help="orbax TrainState dir (not ported yet)")
+                   help="a training checkpoint of the port "
+                        "(.../checkpoints/E_n)")
+    p.add_argument("--mode", default="BMHRL",
+                   choices=["BMHRL", "DETR", "AHRL", "VHRL"])
     p.add_argument("--torch_checkpoint", default=None,
                    help="reference bm_hrl_agent.pt; random init if omitted")
     p.add_argument("--glove_path", default=None)
@@ -57,13 +63,14 @@ def main(argv=None):
 
     refuse_unported(args)
     device = resolve_device(args.device)
-    cfg = Config(train_meta_path=args.train_meta_path,
+    cfg = Config(mode=args.mode, train_meta_path=args.train_meta_path,
                  glove_path=args.glove_path, max_len=args.max_len,
                  compute_dtype=args.compute_dtype, to_log=False,
                  mesh_shape=(1, 1))
     vocab = build_vocab_from_tsv(cfg.train_meta_path, cfg.min_freq_caps,
                                  cfg.glove_path, cfg.d_model_caps)
-    model = load_captioner(cfg, len(vocab), args.torch_checkpoint, device)
+    model = load_captioner(cfg, len(vocab), args.torch_checkpoint, device,
+                           args.checkpoint_dir)
     if args.torch_checkpoint:
         print(f"imported torch checkpoint {args.torch_checkpoint}")
 

@@ -21,10 +21,16 @@ NEG_INF = -1e9
 
 
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         mask: Optional[torch.Tensor]) -> torch.Tensor:
+                         mask: Optional[torch.Tensor],
+                         causal: bool = False) -> torch.Tensor:
     """q, k, v: (B, H, S, d_k) in the compute dtype; mask broadcastable to
-    (B, 1, 1|Sq, Sk). Returns f32 (B, H, Sq, d_k)."""
+    (B, 1, 1|Sq, Sk); ``causal`` adds the lower-triangular mask. Returns
+    f32 (B, H, Sq, d_k)."""
     scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if causal:
+        Sq, Sk = scores.shape[-2:]
+        tri = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~tri, NEG_INF)
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
@@ -101,15 +107,16 @@ class MultiheadedAttention(nn.Module):
                 mask: Optional[torch.Tensor],
                 draws: Optional[Draws] = None,
                 precomputed_kv: Optional[Tuple[torch.Tensor,
-                                               torch.Tensor]] = None
-                ) -> torch.Tensor:
-        """Full (non-causal) attention with a (B, 1, Sk) key pad mask, a
-        (B, Sq, Sk) mask (the caption mask) or None, then dropout on the
-        attention output (``draws``; None: none). The JAX package's gate:
-        sites with a key pad mask (or none) that pass ``flash_qualifies``
-        run ``flash_attention_bsd`` on the un-headed projections.
-        ``precomputed_kv``: ``project_kv(K, V)``, which then replaces the
-        key/value projections of K and V."""
+                                               torch.Tensor]] = None,
+                causal: bool = False) -> torch.Tensor:
+        """Attention with a (B, 1, Sk) key pad mask, a (B, Sq, Sk) mask (the
+        caption mask) or None, and with ``causal`` the lower-triangular
+        mask too, then dropout on the attention output (``draws``; None:
+        none). The JAX package's gate: non-causal sites with a key pad mask
+        (or none) that pass ``flash_qualifies`` run ``flash_attention_bsd``
+        on the un-headed projections. ``precomputed_kv``:
+        ``project_kv(K, V)``, which then replaces the key/value projections
+        of K and V."""
         B, Sq, _ = Q.shape
         if precomputed_kv is None:
             q3, k3, v3 = self._project_qkv(Q, K, V)
@@ -117,7 +124,7 @@ class MultiheadedAttention(nn.Module):
             q3 = self.linear_Q2d(Q)
             k3, v3 = precomputed_kv
         key_pad = mask is None or mask.shape[1] == 1
-        if (key_pad and self.use_flash
+        if (key_pad and not causal and self.use_flash
                 and fused.flash_qualifies(k3.shape[1], self.d_k)):
             key_mask = None if mask is None else mask[:, 0, :]
             out = fused.flash_attention_bsd(q3, k3, v3, key_mask, self.H)
@@ -125,7 +132,7 @@ class MultiheadedAttention(nn.Module):
             return self.linear_d2Q(out)
         m4 = None if mask is None else mask[:, None, :, :]
         out = scaled_dot_attention(self._heads(q3), self._heads(k3),
-                                   self._heads(v3), m4)
+                                   self._heads(v3), m4, causal)
         out = dropout(out, self.dout_p, draws)
         return self.linear_d2Q(out.transpose(1, 2).reshape(B, Sq, self.d))
 
@@ -144,15 +151,35 @@ class MultiheadedAttention(nn.Module):
         q, k_t, v_t = (self._heads(y) for y in out.split(self.d, dim=-1))
         k_cache[:, :, t] = k_t[:, :, 0].float()
         v_cache[:, :, t] = v_t[:, :, 0].float()
+        return self._cached_attend(q, k_cache, v_cache, t, key_mask)
+
+    def attend_step_qkv(self, q_in: torch.Tensor, k_in: torch.Tensor,
+                        v_in: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, t: int,
+                        key_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Single-position causal attention with a KV cache where query, key
+        and value come from different inputs (B, 1, D): the DETR decoder
+        projects Q and K from the position-encoded stream and V from the raw
+        one. Writes the projected key/value of position t into the caches
+        (B, H, L, d_k) IN PLACE (f32 storage of compute-dtype values) and
+        attends keys <= t that ``key_mask`` (B, L) allows."""
+        q = self._heads(self.linear_Q2d(q_in))
+        k_cache[:, :, t] = self._heads(self.linear_K2d(k_in))[:, :, 0].float()
+        v_cache[:, :, t] = self._heads(self.linear_V2d(v_in))[:, :, 0].float()
+        return self._cached_attend(q, k_cache, v_cache, t, key_mask)
+
+    def _cached_attend(self, q, k_cache, v_cache, t: int, key_mask):
+        """The headed query (B, H, 1, d_k) against cache positions <= t (and
+        ``key_mask``), then the output projection."""
         scores = (q.float() @ k_cache.transpose(-1, -2)) / math.sqrt(self.d_k)
         L = k_cache.shape[2]
-        ok = (torch.arange(L, device=h.device) <= t)[None, :]
+        ok = (torch.arange(L, device=q.device) <= t)[None, :]
         if key_mask is not None:
             ok = ok & key_mask
         scores = scores.masked_fill(~ok[:, None, None, :], NEG_INF)
         probs = torch.softmax(scores, dim=-1)
-        ctx = rounded(probs, dt) @ v_cache
-        B = h.shape[0]
+        ctx = rounded(probs, self.dtype) @ v_cache
+        B = q.shape[0]
         return self.linear_d2Q(ctx.transpose(1, 2).reshape(B, 1, self.d))
 
     def folded_weights(self) -> FoldedWeights:

@@ -27,6 +27,7 @@ from bmhrl_tpu_torch.models.blocks import (Dense, Draws, PositionalEncoder,
                                            VocabularyEmbedder, dropout,
                                            rounded)
 from bmhrl_tpu_torch.models.critic import SegmentCritic
+from bmhrl_tpu_torch.ops import attention as fused
 from bmhrl_tpu_torch.ops.segments import (expand_goals,
                                           frontier_exploration_noise,
                                           frontier_goal)
@@ -340,18 +341,27 @@ class HierarchicalAgent(nn.Module):
         pred = self.worker(worker_feat, goals, masks["C_mask"], drop)
         return pred, worker_feat, manager_feat, goals, labels
 
-    def forward(self, V, A, trg, masks, exploration: bool = False,
-                deterministic: bool = True, draws: Optional[Draws] = None):
+    def forward(self, V, A, trg, masks, mix_factor=None,
+                exploration: bool = False, deterministic: bool = True,
+                draws: Optional[Draws] = None):
         """Teacher-forced forward: features V (B, Sv, d_video), A (B, Sa,
         d_audio), caption tokens trg (B, L), masks from
-        ``ops.masking.make_masks(..., trg)``. With ``deterministic=False``
-        dropout is on and with ``exploration`` the Manager adds noise; both
-        draw from ``draws``. Returns (log_probs (B, L, V), worker_feat,
+        ``ops.masking.make_masks(..., trg)``. ``trg`` may be a pair (y,
+        y_hat) of ground-truth and model tokens: the scheduled-sampling
+        input, embeddings mixed as emb(y)(1 - f) + emb(y_hat) f with f =
+        ``mix_factor`` (1 when None). With ``deterministic=False`` dropout
+        is on and with ``exploration`` the Manager adds noise; both draw
+        from ``draws``. Returns (log_probs (B, L, V), worker_feat,
         manager_feat, goals, segment labels (B, L))."""
         if (exploration or not deterministic) and draws is None:
             raise ValueError("a forward with dropout or exploration needs "
                              "draws")
-        C_emb = self.emb_C(trg)
+        if isinstance(trg, (tuple, list)):
+            y, y_hat = trg
+            f = 1.0 if mix_factor is None else mix_factor
+            C_emb = self.emb_C(y) * (1.0 - f) + self.emb_C(y_hat) * f
+        else:
+            C_emb = self.emb_C(trg)
         Va, Av = self.encode(V, A, masks, None if deterministic else draws)
         return self.predict_with_features(C_emb, Va, Av, masks, exploration,
                                           deterministic, draws)
@@ -360,6 +370,10 @@ class HierarchicalAgent(nn.Module):
     # every token, heads at the frontier only
     def critic_init_state(self, B: int) -> Dict:
         return self.critic.init_state(B)
+
+    def critic_step_weights(self) -> Dict:
+        """The frozen critic's cells packed once per decode."""
+        return self.critic.step_weights()
 
     def critic_step(self, tok_t, state, crit_w):
         """Advance the frozen critic by token ids (B,) -> ((B,) logit,
@@ -431,6 +445,71 @@ class HierarchicalAgent(nn.Module):
         logits = self.worker.step_raw(wf_t, goal_t, goal_cache, t, key_mask,
                                       goal_fw)
         return logits, hb
+
+    # the fast loop has every position's inputs once it reaches it
+    has_fast_loop = True
+
+    def fast_setup(self, Va, Av, masks_src, B: int, L: int,
+                   beam_share: int = 1):
+        """The fast loop's state and per-token step (``train.decode``):
+        (caches0, valid0, step_fn) with ``step_fn(tok_t, t, caches, valid)
+        -> (log-probs, caches)``; the step writes the caches it is given in
+        place, so after a parent gather the next step writes into the
+        gathered tensors.
+
+        ``beam_share`` = W > 1: B counts ROWS (clips x beams, clip-major)
+        while Va, Av and masks_src stay at clip level; the W beams of a clip
+        fold into the query-group axis of ``folded_attend`` (one call per
+        memory and layer, G = 2 x heads x W)."""
+        caches0 = self.init_decode_caches(B, L)
+        N, H = self.att_layers, self.att_heads
+        layers = [[self.fusion_layer(s, i) for i in range(N)]
+                  for s in range(2)]
+        # loop-invariant weights (merged QKV, folded projections, packed
+        # critic cells), once per call
+        sw = [[layer.step_weights() for layer in stack] for stack in layers]
+        crit_w = self.critic.step_weights()  # the frozen cells, packed
+        goal_fw = self.worker.goal_attention.folded_weights()
+        # the bimodal agent's audio and video memories; the unimodal one's
+        mems = self.decode_memories(Va, Av, masks_src)
+        scale = 1.0 / math.sqrt(self.d_model // H)
+        # PAD-validity of consumed positions (<s> at 0 is valid by definition)
+        valid0 = torch.zeros(B, L, dtype=torch.bool, device=Va.device)
+        valid0[:, 0] = True
+
+        def attend(q_rows, mem, mask):
+            # (rows, 2H, draw) -> (clips, W x 2H, draw): each clip's memory
+            # is read once for all its beams (rows are clip-major)
+            R, G, draw = q_rows.shape
+            ctx = fused.folded_attend(
+                q_rows.reshape(R // beam_share, beam_share * G, draw), mem,
+                mask, scale)
+            return ctx.reshape(R, G, draw)
+
+        def step_fn(tok_t, t: int, caches, valid):
+            c_t, label_t, crit = self.decode_step_head(tok_t, t,
+                                                       caches["critic"],
+                                                       crit_w)
+            c = [c_t, c_t]
+            for i in range(N):
+                pre = [layers[s][i].step_mem_pre(c[s], t, caches["fus"][s][i],
+                                                 valid, sw[s][i])
+                       for s in range(2)]
+                # per memory, worker heads first, then manager heads:
+                # (rows, 2H, draw)
+                ctx = [attend(torch.cat([pre[0][1 + j], pre[1][1 + j]],
+                                        dim=1), mem, mask)
+                       for j, (mem, mask) in enumerate(mems)]
+                c = [layers[s][i].step_mem_post(
+                    pre[s][0], *(x[:, s * H:(s + 1) * H] for x in ctx),
+                    sw[s][i]) for s in range(2)]
+            logits, hb = self.decode_step_tail(
+                c[0], c[1], label_t, caches["hb"], caches["goal"], t, valid,
+                goal_fw)
+            caches = dict(caches, critic=crit, hb=hb)
+            return logits, caches
+
+        return caches0, valid0, step_fn
 
 
 class BMHrlAgent(HierarchicalAgent):

@@ -1,7 +1,8 @@
 """Frozen SegmentCritic: 4-layer LSTM(D -> 2D) -> AReLU -> 2-layer GRU(2D)
 -> AReLU -> Linear(2D -> 1) (the port of bmhrl_tpu/models/critic.py), over
 a whole caption (``forward``, the training path) or one token at a time
-(``init_state``/``step``, the decode).
+(``init_state``/``step``, the decode), and ``logits_trainable``, the
+forward with a gradient of critic pretraining (``cli.train_critic``).
 
 Parameters keep torch's RNN layout (w_ih (nG*H, in), gate order LSTM i,f,g,o
 and GRU r,z,n), which is also the JAX package's. Every cell runs through
@@ -11,6 +12,12 @@ full-sequence pass is L cell steps per layer, where the JAX package scans
 (``lax.scan``) with ``x·W_ihᵀ + b_ih`` taken for all positions first and
 ``h·W_hhᵀ + b_hh`` added per step; the cells sum both halves and the
 pre-summed biases at once, which agrees to ~1 ulp in f32.
+
+``logits_trainable`` scans each layer in plain PyTorch with autograd, on
+the card too: the JAX package's trainable scan is plain XLA as well (its
+cell kernels serve only the frozen steps and have no backward), and it
+follows that scan's order (``x·W_ihᵀ + b_ih`` for all positions, then the
+hidden half per step).
 """
 from __future__ import annotations
 
@@ -37,6 +44,19 @@ class LSTMLayer(_RNNLayer):
     def __init__(self, d_in: int, d_hidden: int, device=None):
         super().__init__(4, d_in, d_hidden, device)
 
+    def scan(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, K) -> (B, L, H) with a gradient, torch LSTM semantics."""
+        xg = x.float() @ self.weight_ih.t() + self.bias_ih
+        h = c = xg.new_zeros(x.shape[0], self.weight_hh.shape[1])
+        hs = []
+        for t in range(x.shape[1]):
+            gates = xg[:, t] + h @ self.weight_hh.t() + self.bias_hh
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            hs.append(h)
+        return torch.stack(hs, dim=1)
+
     def step_weights(self) -> ck.PackedCell:
         return ck.pack_lstm(self.weight_ih, self.weight_hh,
                             self.bias_ih + self.bias_hh)
@@ -56,6 +76,21 @@ class LSTMLayer(_RNNLayer):
 class GRULayer(_RNNLayer):
     def __init__(self, d_in: int, d_hidden: int, device=None):
         super().__init__(3, d_in, d_hidden, device)
+
+    def scan(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, K) -> (B, L, H) with a gradient, torch GRU semantics."""
+        xg = x.float() @ self.weight_ih.t() + self.bias_ih
+        h = xg.new_zeros(x.shape[0], self.weight_hh.shape[1])
+        hs = []
+        for t in range(x.shape[1]):
+            hg = h @ self.weight_hh.t() + self.bias_hh
+            xr, xz, xn = xg[:, t].chunk(3, dim=-1)
+            hr, hz, hn = hg.chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            h = (1.0 - z) * torch.tanh(xn + r * hn) + z * h
+            hs.append(h)
+        return torch.stack(hs, dim=1)
 
     def step_weights(self) -> ck.PackedCell:
         return ck.pack_gru(self.weight_ih, self.weight_hh, self.bias_ih,
@@ -109,6 +144,17 @@ class SegmentCritic(nn.Module):
         h = self.relu(h)
         for l in range(2):
             h = getattr(self, f"gru_l{l}")(h)
+        return self.lin(self.relu2(h))
+
+    def logits_trainable(self, embedded: torch.Tensor) -> torch.Tensor:
+        """``forward`` with a gradient (critic pretraining): (B, L, d_caps)
+        -> (B, L, 1) logits through the plain scans."""
+        h = embedded.float()
+        for l in range(4):
+            h = getattr(self, f"lstm_l{l}").scan(h)
+        h = self.relu(h)
+        for l in range(2):
+            h = getattr(self, f"gru_l{l}").scan(h)
         return self.lin(self.relu2(h))
 
     def init_state(self, B: int) -> Dict[str, List]:

@@ -1,9 +1,10 @@
 """Caption decoders (the port of bmhrl_tpu/train/decode.py for the bimodal
 ``BMHrlAgent`` and the unimodal ``UnimodalAgent``, through the methods of
-``models.bmhrl.HierarchicalAgent``): greedy and sampled decode, beam
-search, each on the fast incremental loop and on the full-buffer loop.
+``models.bmhrl.HierarchicalAgent``, and for the ``models.detr.DetrCaption``
+through its own step): greedy and sampled decode, beam search, each on the
+fast incremental loop and on the full-buffer loop.
 
-The fast loop (``_fast_setup``):
+The fast loop (each model's ``fast_setup``):
 - The encoder runs once per clip.
 - The frozen critic's RNN state is carried across steps (6 cell kernels per
   token instead of a rescan of the caption); its weights are packed for
@@ -34,14 +35,12 @@ cuts at the first </s>.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from bmhrl_tpu_torch.data.vocab import EOS, SPECIALS
 from bmhrl_tpu_torch.models.blocks import Draws
-from bmhrl_tpu_torch.ops import attention as fused
 from bmhrl_tpu_torch.ops.masking import c_mask
 
 NEG_INF = -1e9
@@ -86,66 +85,6 @@ def _gather(x, idx):
     return x.index_select(0, idx)
 
 
-def _fast_setup(model, Va, Av, masks_src, B: int, L: int,
-                beam_share: int = 1):
-    """Decode state and the per-token step. Returns (caches0, valid0,
-    step_fn) with ``step_fn(tok_t, t, caches, valid) -> (log-probs,
-    caches)``; the step writes the caches it is given in place, so after a
-    parent gather (``_gather(caches, idx)``) the next step writes into the
-    gathered tensors.
-
-    ``beam_share`` = W > 1: B counts ROWS (clips x beams, clip-major) while
-    Va, Av and masks_src stay at clip level; the W beams of a clip fold
-    into the query-group axis of ``folded_attend`` (one call per memory and
-    layer, G = 2 x heads x W)."""
-    caches0 = model.init_decode_caches(B, L)
-    N, H = model.att_layers, model.att_heads
-    layers = [[model.fusion_layer(s, i) for i in range(N)] for s in range(2)]
-    # loop-invariant weights (merged QKV, folded projections, packed critic
-    # cells), once per call
-    sw = [[layer.step_weights() for layer in stack] for stack in layers]
-    crit_w = model.critic.step_weights()  # the frozen cells, packed
-    goal_fw = model.worker.goal_attention.folded_weights()
-    # the bimodal agent's audio and video memories; the unimodal agent's one
-    mems = model.decode_memories(Va, Av, masks_src)
-    scale = 1.0 / math.sqrt(model.d_model // H)
-    # PAD-validity of consumed positions (<s> at 0 is valid by definition)
-    valid0 = torch.zeros(B, L, dtype=torch.bool, device=Va.device)
-    valid0[:, 0] = True
-
-    def attend(q_rows, mem, mask):
-        # (rows, 2H, draw) -> (clips, W x 2H, draw): each clip's memory is
-        # read once for all its beams (rows are clip-major)
-        R, G, draw = q_rows.shape
-        ctx = fused.folded_attend(
-            q_rows.reshape(R // beam_share, beam_share * G, draw), mem, mask,
-            scale)
-        return ctx.reshape(R, G, draw)
-
-    def step_fn(tok_t, t: int, caches, valid):
-        c_t, label_t, crit = model.decode_step_head(tok_t, t,
-                                                    caches["critic"], crit_w)
-        c = [c_t, c_t]
-        for i in range(N):
-            pre = [layers[s][i].step_mem_pre(c[s], t, caches["fus"][s][i],
-                                             valid, sw[s][i])
-                   for s in range(2)]
-            # per memory, worker heads first, then manager heads:
-            # (rows, 2H, draw)
-            ctx = [attend(torch.cat([pre[0][1 + j], pre[1][1 + j]], dim=1),
-                          mem, mask) for j, (mem, mask) in enumerate(mems)]
-            c = [layers[s][i].step_mem_post(
-                pre[s][0], *(x[:, s * H:(s + 1) * H] for x in ctx), sw[s][i])
-                for s in range(2)]
-        logits, hb = model.decode_step_tail(
-            c[0], c[1], label_t, caches["hb"], caches["goal"], t, valid,
-            goal_fw)
-        caches = dict(caches, critic=crit, hb=hb)
-        return logits, caches
-
-    return caches0, valid0, step_fn
-
-
 def _start(B: int, L: int, start_idx: int, pad_idx: int, dev):
     """(token buffer (B, L) of PAD after <s>, per-position probabilities,
     done flags)."""
@@ -160,7 +99,7 @@ def _decode_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
                       greedy: bool, draws: Optional[Draws], sample_args):
     L = max_len + 1
     trg, probs, done = _start(B, L, start_idx, pad_idx, Va.device)
-    caches, valid, step_fn = _fast_setup(model, Va, Av, masks_src, B, L)
+    caches, valid, step_fn = model.fast_setup(Va, Av, masks_src, B, L)
     for t in range(max_len):
         tok_t = trg[:, t]
         valid[:, t] = tok_t != pad_idx
@@ -201,7 +140,7 @@ def _decode_loop(model, Va, Av, masks_src, B: int, max_len: int,
     L = max_len + 1
     trg, probs, done = _start(B, L, start_idx, pad_idx, Va.device)
     labels = torch.zeros(B, L, dtype=torch.int32, device=Va.device)
-    crit_w = model.critic.step_weights()
+    crit_w = model.critic_step_weights()
     crit = model.critic_init_state(B)
     fusion_kv = model.precompute_fusion_kv(Va, Av)
     for t in range(max_len):
@@ -231,7 +170,8 @@ def decode(model, feats: Dict[str, torch.Tensor],
     the uniforms of ``draws`` ("sample" stream; seed 0 when None);
     ``exploration`` adds the Manager's noise ("noise" stream) and always
     takes the full-buffer loop; ``use_fast`` (default: not exploration)
-    picks the fast loop. Returns (tokens (B, max_len+1) int64, the model's
+    picks the fast loop, which the DETR's pre-goal path does not have.
+    Returns (tokens (B, max_len+1) int64, the model's
     TRUE probability of each chosen token (B, max_len+1) f32)."""
     V = feats["rgb"] + feats["flow"]
     A = feats["audio"]
@@ -243,7 +183,7 @@ def decode(model, feats: Dict[str, torch.Tensor],
     args = (model, Va, Av, masks_src, V.shape[0], max_len, start_idx,
             end_idx, pad_idx, greedy, draws)
     sample_args = (temperature, top_k, top_p)
-    if use_fast and not exploration:
+    if use_fast and not exploration and model.has_fast_loop:
         return _decode_loop_fast(*args, sample_args)
     return _decode_loop(*args, exploration, sample_args)
 
@@ -298,8 +238,8 @@ def _beam_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
     L = max_len + 1
     trg, done, scores, lengths = _beam_start(B, W, L, start_idx, pad_idx,
                                              Va.device)
-    caches, valid, step_fn = _fast_setup(model, Va, Av, masks_src, B * W, L,
-                                         beam_share=W)
+    caches, valid, step_fn = model.fast_setup(Va, Av, masks_src, B * W, L,
+                                              beam_share=W)
     for t in range(max_len):
         tok_t = trg[:, t]
         valid[:, t] = tok_t != pad_idx
@@ -331,7 +271,7 @@ def _beam_loop_full(model, Va, Av, masks_src, B: int, max_len: int,
     trg, done, scores, lengths = _beam_start(B, W, L, start_idx, pad_idx,
                                              Va.device)
     labels = torch.zeros(BW, L, dtype=torch.int32, device=Va.device)
-    crit_w = model.critic.step_weights()
+    crit_w = model.critic_step_weights()
     crit = model.critic_init_state(BW)
     fusion_kv = model.precompute_fusion_kv(Va, Av)
     for t in range(max_len):
@@ -366,7 +306,7 @@ def beam_decode(model, feats: Dict[str, torch.Tensor],
     best beam (B, max_len+1) int64, its cumulative log-prob (B,) f32)."""
     V = feats["rgb"] + feats["flow"]
     Va, Av = model.encode(V, feats["audio"], masks_src)
-    fast = use_fast is None or use_fast
+    fast = (use_fast is None or use_fast) and model.has_fast_loop
     loop = _beam_loop_fast if fast else _beam_loop_full
     return loop(model, Va, Av, masks_src, V.shape[0], max_len, start_idx,
                 end_idx, pad_idx, int(beam_width), length_penalty)

@@ -37,18 +37,15 @@ from bmhrl_tpu_torch import resolve_device
 from bmhrl_tpu_torch.config import Config
 from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD
 
-NOT_PORTED = {"DETR": "--mode DETR is not ported yet",
-              "verbose": "--mode verbose (train/analyze.py) is not ported "
-                         "yet"}
-
-
 def build_model(cfg: Config, voc_size: int, device="cuda"):
     """The captioner of ``cfg.mode`` on ``device``, its parameters as the
     modules initialise them (load weights with ``weights.load_jax_params``):
     ``BMHrlAgent`` for BMHRL/BM/verbose/eval, ``AudioAgent`` for AHRL,
-    ``VideoAgent`` for VHRL. ``cfg.use_pallas_attention`` decides whether
-    the encoder sites that qualify run the flash kernel."""
+    ``VideoAgent`` for VHRL, ``DetrCaption`` for DETR.
+    ``cfg.use_pallas_attention`` decides whether the encoder sites that
+    qualify run the flash kernel."""
     from bmhrl_tpu_torch.models.bmhrl import BMHrlAgent
+    from bmhrl_tpu_torch.models.detr import DetrCaption
     from bmhrl_tpu_torch.models.unimodal import AudioAgent, VideoAgent
 
     if cfg.mode in ("BMHRL", "BM", "verbose", "eval"):
@@ -58,7 +55,7 @@ def build_model(cfg: Config, voc_size: int, device="cuda"):
     if cfg.mode == "VHRL":
         return VideoAgent.build(cfg, voc_size, device)
     if cfg.mode == "DETR":
-        raise NotImplementedError("mode DETR is not ported yet")
+        return DetrCaption.build(cfg, voc_size, device)
     raise ValueError(f"unknown mode {cfg.mode}")
 
 
@@ -219,11 +216,13 @@ def make_step_factory(cfg: Config, vocab, device):
     initialised as flax initialises them from seeds derived from
     ``cfg.seed``, the embedding from GloVe where the vocabulary has vectors
     (then frozen unless ``cfg.unfreeze_word_emb``), the pretrained critic
-    where ``cfg.rl_critic_path`` exists; their ``StepFactory`` and its
-    initial state."""
+    where ``cfg.rl_critic_path`` exists and the captioner has a critic;
+    their ``StepFactory`` (``DetrStepFactory`` for DETR) and its initial
+    state."""
     from bmhrl_tpu_torch.models.bmhrl import (BMManagerValueFunction,
                                               BMWorkerValueFunction)
     from bmhrl_tpu_torch.train.steps import StepFactory
+    from bmhrl_tpu_torch.train.steps_detr import DetrStepFactory
     from bmhrl_tpu_torch.utils.checkpoint import install_critic
     from bmhrl_tpu_torch.utils.logging import log_stderr
     from bmhrl_tpu_torch.weights import load_jax_params, random_module_params
@@ -239,11 +238,13 @@ def make_step_factory(cfg: Config, vocab, device):
         with torch.no_grad():
             model.emb_C.embedding.weight.copy_(torch.from_numpy(
                 vocab.vectors))
-    if cfg.rl_critic_path and os.path.exists(cfg.rl_critic_path):
+    if (cfg.rl_critic_path and os.path.exists(cfg.rl_critic_path)
+            and hasattr(model, "critic")):
         install_critic(model, cfg.rl_critic_path)
         log_stderr(f"loaded critic: {cfg.rl_critic_path}")
-    sf = StepFactory(cfg, model, wv_model, mv_model,
-                     (not glove_loaded) or cfg.unfreeze_word_emb)
+    factory = DetrStepFactory if cfg.mode == "DETR" else StepFactory
+    sf = factory(cfg, model, wv_model, mv_model,
+                 (not glove_loaded) or cfg.unfreeze_word_emb)
     return sf, sf.init_state()
 
 
@@ -256,7 +257,9 @@ def _launch_counts() -> Dict[str, int]:
 def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
                  device="cuda") -> Dict:
     """The whole training procedure on ``device``. Returns, for
-    ``cfg.mode == "eval"``, the metrics of each validation phase; else
+    ``cfg.mode == "eval"``, the metrics of each validation phase; for
+    "verbose", the ``analyze_batch`` record of each batch of epoch 0 (up to
+    ``max_steps_per_epoch``); else
     ``{"best_metric", "state", "start_epoch", "step_factory", "epochs"}``:
     ``epochs`` holds one record per trained epoch (phase, lr, steps, mean
     loss, seconds, the ``StepTimer`` summary, the kernel launches, the
@@ -268,8 +271,6 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
     from bmhrl_tpu_torch.utils.logging import ScalarLogger, log_stderr
     from bmhrl_tpu_torch.utils.profiling import StepTimer
 
-    if cfg.mode in NOT_PORTED:
-        raise SystemExit(NOT_PORTED[cfg.mode])
     device = resolve_device(device)
     if cfg.debug_nans:
         torch.autograd.set_detect_anomaly(True)
@@ -329,6 +330,22 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
         logger.close()
         return results
 
+    if cfg.mode == "verbose":
+        # the diagnostic loss-decomposition pass
+        from bmhrl_tpu_torch.train.analyze import analyze_batch
+
+        results = []
+        for bi, batch in enumerate(Prefetcher(
+                train_ds.batches(0), cfg.prefetch_batches, device)):
+            if max_steps_per_epoch is not None and bi >= max_steps_per_epoch:
+                break
+            results.append(analyze_batch(
+                sf, state, scorer, device_batch(batch), batch["captions"],
+                vocab.itos, step_seed(cfg.seed, 0, bi)))
+        logger.close()
+        return results
+
+    is_detr = cfg.mode == "DETR"
     best_metric = 0.0
     epochs_unchanged = 0
     # the warmstart/alternation state at start_epoch, in closed form: the
@@ -361,7 +378,8 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
         lr = lr * lr_scale
         n_steps = 0
         loss_terms: List[torch.Tensor] = []  # fetched once per epoch
-        phase_name = ("warmstart" if is_warmstart
+        # DETR trains the same way in warmstart and RL epochs
+        phase_name = ("detr" if is_detr else "warmstart" if is_warmstart
                       else "worker" if train_worker else "manager")
         launches0 = _launch_counts()
 
@@ -384,6 +402,26 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
                         torch.from_numpy(w).to(device),
                         torch.from_numpy(m).to(device), aux["token_mask"],
                         aux["seg"])
+                return
+            if kind == "detr":
+                roll = payload
+                with timer.phase("host_score"):
+                    score, _ = scorer.delta_worker(host["sampled"],
+                                                   batch["captions"])
+                score = torch.from_numpy(score).to(device)
+                if cfg.with_reinforce:
+                    with timer.phase("update"):
+                        state, metrics = sf.reinforce_update(
+                            state, bdev, seed, lr, roll["sampled"], score)
+                else:
+                    with timer.phase("host_match"):
+                        tc = sf.match_targets(host["pred_classes"],
+                                              host["x_idx"])
+                    with timer.phase("update"):
+                        state, metrics = sf.detr_update(
+                            state, bdev, seed, lr, roll["sampled"], score,
+                            torch.from_numpy(tc).to(device))
+                loss_terms.append(metrics["loss"])
                 return
             roll, step_i = payload
             sampled = host["sampled"]
@@ -420,7 +458,13 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
                 with timer.phase("step"):
                     seed = step_seed(cfg.seed, epoch, n_steps)
                     bdev = device_batch(batch)
-                    if is_warmstart:
+                    if is_detr:
+                        with timer.phase("rollout"):
+                            roll = sf.detr_rollout(state, bdev, seed)
+                            fetch = to_host({k: roll[k] for k in (
+                                "sampled", "pred_classes", "x_idx")})
+                        item = ("detr", batch, bdev, roll, seed, fetch)
+                    elif is_warmstart:
                         with timer.phase("warmstart"):
                             state, metrics, aux = sf.warmstart_step(
                                 state, bdev, seed, lr)

@@ -1,9 +1,11 @@
-"""Training losses as pure functions (the port's copy of the parts of
-bmhrl_tpu/train/losses.py the steps use). They take log-probabilities (the
-model emits log_softmax) and return elementwise tensors; callers reduce
-(sum / n_tokens) as the reference epoch loops do."""
+"""Training losses as pure functions (the port's copy of
+bmhrl_tpu/train/losses.py). The captioning losses take log-probabilities
+(the model emits log_softmax) and return elementwise tensors; callers
+reduce (sum / n_tokens) as the reference epoch loops do. The DETR's word
+loss takes targets that ``hungarian_match`` assigns on the host (scipy)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -56,3 +58,51 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor,
     """mean((pred - target)^2 * mask): the value-net loss of the reference
     epoch loops."""
     return torch.mean((pred - target) ** 2 * mask)
+
+
+def reinforce_loss(pred_probs: torch.Tensor, action: torch.Tensor,
+                   value: torch.Tensor, critic_value: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Actor-critic: -mean(detached advantage * log pi(a)) +
+    mean(advantage^2), the probabilities clipped to [eps, 1 - eps] (the
+    reference's entropy term is off)."""
+    pred_probs = pred_probs.clamp(eps, 1.0 - eps)
+    policy_action = pred_probs.gather(-1, action[..., None].long())[..., 0]
+    advantage = value - critic_value
+    policy_loss = -torch.mean(advantage.detach() * torch.log(policy_action))
+    return policy_loss + torch.mean(advantage ** 2)
+
+
+def hungarian_match(pred_logits, targets, pad_idx: int = 1) -> np.ndarray:
+    """Host-side optimal assignment of the DETR queries to a caption's words
+    (cost: minus the softmax probability of the word), one assignment per
+    row over its non-pad tokens. pred_logits (B, Q, C), targets (B, L)
+    token ids, numpy. Returns (B, Q) int64: the matched word per query, the
+    "no word" class C - 1 for the rest."""
+    from scipy.optimize import linear_sum_assignment
+    from scipy.special import softmax
+
+    pred_logits = np.asarray(pred_logits)
+    targets = np.asarray(targets)
+    B, Q, C = pred_logits.shape
+    out = np.full((B, Q), C - 1, np.int64)
+    probs = softmax(pred_logits, axis=-1)
+    for b in range(B):
+        tgt = targets[b][targets[b] != pad_idx]
+        if len(tgt) == 0:
+            continue
+        qi, ti = linear_sum_assignment(-probs[b][:, tgt])
+        out[b, qi] = tgt[ti]
+    return out
+
+
+def detr_word_loss(pred_logits: torch.Tensor, target_classes: torch.Tensor,
+                   eos_coef: float = 0.1) -> torch.Tensor:
+    """Weighted cross-entropy of the query classes, the "no word" class
+    weighted ``eos_coef``: sum(w nll) / sum(w)."""
+    num_classes = pred_logits.shape[-1] - 1
+    logp = torch.log_softmax(pred_logits.float(), dim=-1)
+    tc = target_classes.long()
+    nll = -logp.gather(-1, tc[..., None])[..., 0]
+    w = torch.where(tc == num_classes, eos_coef, 1.0)
+    return torch.sum(w * nll) / torch.sum(w)

@@ -116,6 +116,9 @@ class StepFactory:
     """The training steps of one captioner and its two value functions.
     Freezes the critic (``requires_grad`` off)."""
 
+    # the synonym noise's rate of the captions
+    SYNONYM_P = 0.3
+
     def __init__(self, cfg, model, wv_model, mv_model, emb_trainable: bool):
         self.cfg = cfg
         self.model = model
@@ -128,7 +131,8 @@ class StepFactory:
         self.voc_size = model.voc_size
         self.device = model.device
         model.requires_grad_(True)
-        model.critic.requires_grad_(False)
+        if getattr(model, "critic", None) is not None:
+            model.critic.requires_grad_(False)
         wv_model.requires_grad_(True)
         mv_model.requires_grad_(True)
         self.cap_params = dict(model.named_parameters())
@@ -152,7 +156,8 @@ class StepFactory:
         cap = batch["caption_idx"]
         x_idx, y_idx = cap[:, :-1], cap[:, 1:]
         x_idx = synonym_noise(x_idx, *draws.synonym(x_idx.shape,
-                                                    self.voc_size))
+                                                    self.voc_size),
+                              p=self.SYNONYM_P)
         masks = make_masks({"rgb": batch["rgb"], "audio": A}, x_idx, PAD)
         return V, A, x_idx, y_idx, masks
 

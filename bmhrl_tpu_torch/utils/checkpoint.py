@@ -5,8 +5,11 @@ files (the port of bmhrl_tpu/utils/checkpoint.py):
   both value nets' and the three ``GatedAdam`` states of
   ``train.steps.TrainState``, one ``torch.save`` file per component in a
   directory (the training loop's ``.../checkpoints/E_{n}/``);
-- ``load_torch_critic`` / ``install_critic``: the reference's pretrained
-  segment critic (``critic.cp``);
+- ``load_model_params``: a checkpoint's captioner parameters alone, for
+  the serving CLIs' ``--checkpoint_dir``;
+- ``load_torch_critic`` / ``install_critic`` / ``export_torch_critic``:
+  the reference's pretrained segment critic (``critic.cp``), which
+  ``cli.train_critic`` writes;
 - ``import_torch_bmhrl`` / ``export_torch_bmhrl``: the reference's
   ``bm_hrl_agent.pt`` state dict <-> the flax-layout weight tree, which
   goes into the port's ``BMHrlAgent`` through ``weights.load_jax_params``.
@@ -71,30 +74,47 @@ def load_checkpoint(ckpt_dir: str, model, wv_model, mv_model, state):
     from bmhrl_tpu_torch.train.optim import AdamState
 
     refuse_orbax(ckpt_dir)
-
-    def read(name):
-        return torch.load(os.path.join(ckpt_dir, f"{name}.pt"),
-                          map_location="cpu", weights_only=True)
-
     opts = {}
     for k, m in (("cap", model), ("wv", wv_model), ("mv", mv_model)):
-        params = dict(m.named_parameters())
-        saved = read(f"{k}_params")
-        if set(saved) != set(params):
-            raise KeyError(f"{ckpt_dir}: {k} parameters differ: "
-                           f"{sorted(set(saved) ^ set(params))[:5]}")
-        for n, p in params.items():
-            if saved[n].shape != p.shape:
-                raise ValueError(f"{ckpt_dir}: {k} {n}: checkpoint "
-                                 f"{tuple(saved[n].shape)} vs model "
-                                 f"{tuple(p.shape)}")
-            p.copy_(saved[n])
-        opt, like = read(f"{k}_opt"), getattr(state, f"{k}_opt")
+        _copy_params(ckpt_dir, k, _read(ckpt_dir, f"{k}_params"), m)
+        opt, like = _read(ckpt_dir, f"{k}_opt"), getattr(state, f"{k}_opt")
         opts[f"{k}_opt"] = AdamState(
             count={n: int(opt["count"][n]) for n in like.count},
             mu={n: opt["mu"][n].to(v.device) for n, v in like.mu.items()},
             nu={n: opt["nu"][n].to(v.device) for n, v in like.nu.items()})
     return state._replace(**opts)
+
+
+def _read(ckpt_dir: str, name: str):
+    return torch.load(os.path.join(ckpt_dir, f"{name}.pt"),
+                      map_location="cpu", weights_only=True)
+
+
+def _copy_params(ckpt_dir: str, what: str, saved: Dict[str, torch.Tensor],
+                 module) -> None:
+    """Copy ``saved`` into ``module``'s parameters, strict: every name and
+    shape."""
+    params = dict(module.named_parameters())
+    if set(saved) != set(params):
+        raise KeyError(f"{ckpt_dir}: {what} parameters differ: "
+                       f"{sorted(set(saved) ^ set(params))[:5]}")
+    for n, p in params.items():
+        if saved[n].shape != p.shape:
+            raise ValueError(f"{ckpt_dir}: {what} {n}: checkpoint "
+                             f"{tuple(saved[n].shape)} vs model "
+                             f"{tuple(p.shape)}")
+        p.copy_(saved[n])
+
+
+@torch.no_grad()
+def load_model_params(ckpt_dir: str, model):
+    """The captioner's parameters of a port checkpoint (a training run's
+    ``.../checkpoints/E_{n}``) copied into ``model``, strict: the serving
+    CLIs' ``--checkpoint_dir``. An orbax directory is refused with a
+    message. Returns the model."""
+    refuse_orbax(ckpt_dir)
+    _copy_params(ckpt_dir, "cap", _read(ckpt_dir, "cap_params"), model)
+    return model
 
 
 def load_torch_critic(path: str) -> Dict[str, Any]:
@@ -112,6 +132,24 @@ def load_torch_critic(path: str) -> Dict[str, Any]:
     for r in ("relu", "relu2"):
         out[r] = {"alpha": sd[f"{r}.alpha"], "beta": sd[f"{r}.beta"]}
     return {"params": out}
+
+
+def export_torch_critic(critic, path: str) -> str:
+    """The inverse of ``load_torch_critic``: a ``SegmentCritic``'s weights
+    -> ``path``, a state dict in the reference's layout (``critic.cp``)."""
+    sd = {}
+    for kind, n in (("lstm", 4), ("gru", 2)):
+        for l in range(n):
+            layer = getattr(critic, f"{kind}_l{l}")
+            for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                sd[f"{kind}.{k}_l{l}"] = _cpu(getattr(layer, k))
+    sd["lin.weight"] = _cpu(critic.lin.weight)
+    sd["lin.bias"] = _cpu(critic.lin.bias)
+    for r in ("relu", "relu2"):
+        sd[f"{r}.alpha"] = _cpu(getattr(critic, r).alpha)
+        sd[f"{r}.beta"] = _cpu(getattr(critic, r).beta)
+    torch.save(sd, path)
+    return path
 
 
 def install_critic(model, critic_path: str):

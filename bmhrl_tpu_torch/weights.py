@@ -8,10 +8,14 @@ where X depends on the owning module:
 
 - ``Dense`` (an ``nn.Linear``): ``kernel`` (in, out) <-> ``weight`` (out, in),
   transposed; ``bias`` <-> ``bias``;
-- ``nn.LayerNorm``: ``scale`` <-> ``weight``; ``bias`` <-> ``bias``;
+- ``nn.Conv1d`` (the DETR's temporal projections): ``kernel`` (k, in, out)
+  <-> ``weight`` (out, in, k), all axes reversed; ``bias`` <-> ``bias``;
+- ``nn.LayerNorm`` and ``nn.GroupNorm``: ``scale`` <-> ``weight``;
+  ``bias`` <-> ``bias``;
 - ``nn.Embedding``: ``embedding`` <-> ``weight``;
 - anything else (critic RNN weights, already in torch layout; AReLU
-  ``alpha``/``beta``; ``a_v_constant``): the same name.
+  ``alpha``/``beta``; ``a_v_constant``; the DETR detector's
+  ``query_embed``): the same name.
 """
 from __future__ import annotations
 
@@ -22,20 +26,23 @@ import torch
 from torch import nn
 
 _LEAF = {nn.Linear: {"weight": "kernel", "bias": "bias"},
+         nn.Conv1d: {"weight": "kernel", "bias": "bias"},
          nn.LayerNorm: {"weight": "scale", "bias": "bias"},
+         nn.GroupNorm: {"weight": "scale", "bias": "bias"},
          nn.Embedding: {"weight": "embedding"}}
 
 
 def _flax_paths(model: nn.Module
                 ) -> Iterator[Tuple[Tuple[str, ...], nn.Parameter, bool]]:
-    """(flax path under "params", torch parameter, transposed) for every
-    parameter of ``model``."""
+    """(flax path under "params", torch parameter, transposed: all axes
+    reversed) for every parameter of ``model``."""
     for mod_name, mod in model.named_modules():
         rename = next((m for t, m in _LEAF.items() if isinstance(mod, t)), {})
         for leaf, p in mod.named_parameters(recurse=False):
             path = tuple(mod_name.split(".")) if mod_name else ()
             yield (path + (rename.get(leaf, leaf),), p,
-                   isinstance(mod, nn.Linear) and leaf == "weight")
+                   isinstance(mod, (nn.Linear, nn.Conv1d))
+                   and leaf == "weight")
 
 
 def _flatten(tree: Dict, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -76,11 +83,14 @@ def random_jax_layout_params(dims: Dict, seed: int = 0) -> Dict:
     """A random flax-layout tree ``{"params": ...}`` of numpy f32 arrays with
     the keys and shapes that the JAX package's ``init`` of the agent gives
     (``random_module_params`` of the agent's shapes): ``UnimodalAgent`` when
-    ``dims`` name a ``modality`` (AHRL/VHRL), else ``BMHrlAgent``."""
+    ``dims`` name a ``modality`` (AHRL/VHRL), ``DetrCaption`` when they
+    name ``n_time`` (DETR), else ``BMHrlAgent``."""
     from bmhrl_tpu_torch.models.bmhrl import BMHrlAgent
+    from bmhrl_tpu_torch.models.detr import DetrCaption
     from bmhrl_tpu_torch.models.unimodal import UnimodalAgent
 
-    cls = UnimodalAgent if "modality" in dims else BMHrlAgent
+    cls = (UnimodalAgent if "modality" in dims
+           else DetrCaption if "n_time" in dims else BMHrlAgent)
     return random_module_params(cls(**dims, device="meta"), seed)
 
 
@@ -88,20 +98,27 @@ def random_module_params(model: nn.Module, seed: int = 0,
                          flax_init: bool = False) -> Dict:
     """A random flax-layout tree for ``model`` (its parameters give the
     keys and shapes; a model on the "meta" device is enough). Scales follow
-    the flax initialisers (lecun-normal kernels, unit-normal embedding,
-    torch-RNN uniform critic weights, AReLU constants at their init
-    values); biases, LayerNorm parameters and the fusion gate constant get
+    the flax initialisers (lecun-normal kernels, unit-normal embedding and
+    DETR queries, torch-RNN uniform critic weights, AReLU constants at their
+    init values); biases, norm parameters and the fusion gate constant get
     small random values so that a loader that drops them shows, or, with
     ``flax_init``, the flax initialisers' values (zero biases and gate
-    constant, unit LayerNorm scale): the start of a training run."""
+    constant, unit norm scales; the DETR convolutions' biases uniform in
+    ±1/sqrt(fan-in), torch's, as the JAX package sets them): the start of
+    a training run."""
     rng = np.random.RandomState(seed)
+    convs = {n for n, m in model.named_modules() if isinstance(m, nn.Conv1d)}
     tree: Dict = {}
     for path, p, transposed in _flax_paths(model):
         shape = tuple(p.shape)[::-1] if transposed else tuple(p.shape)
         leaf = path[-1]
         if leaf == "kernel":
-            arr = rng.randn(*shape) / np.sqrt(shape[0])
-        elif leaf == "embedding":
+            arr = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+        elif leaf == "bias" and flax_init and ".".join(path[:-1]) in convs:
+            conv = model.get_submodule(".".join(path[:-1]))
+            bound = 1.0 / np.sqrt(conv.weight[0].numel())
+            arr = rng.uniform(-bound, bound, shape)
+        elif leaf in ("embedding", "query_embed"):
             arr = rng.randn(*shape)
         elif leaf.startswith(("weight_", "bias_")):
             bound = 1.0 / np.sqrt(max(shape[0] // 4, 1))

@@ -93,7 +93,30 @@ Phases, each of which raises at its first failure:
    forward/backward/optimizer split from CUDA events, and the flash
    forward kernel, backward recompute and
    ``scaled_dot_product_attention`` forward + backward at the B=16 sites;
-8. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
+8. train_loop: ``train_rl_cap`` at the flagship's width on a written
+   corpus (the timed runs, the first the main path), its gates and the
+   synthetic learning proof;
+9. detr: the DETR captioner. A small f32 DETR (default and pre-goal)
+   decoded on card and CPU with the same draws in every mode (identical
+   tokens) and one ``detr_update`` on each (losses and parameters within
+   1e-5); the flagship DETR (``DetrCaption.build``: vocabulary 10172,
+   d_model 1024, 3 layers, bf16, random weights from a seed) serving the
+   64 requests greedily (a main path: launches zeroed just before and read
+   just after; flash and folded attention on the tensor-core routes) and
+   with beam W=4, the pre-goal flagship serving 8 (the cell kernels' main
+   path); per-step agreement with the plain versions fed the same tokens
+   (>= 0.95) and one host sync per token; clips/s of greedy B=32 and
+   B=256, beam W=4 at 64 clips and sampled B=256, the bimodal greedy B=256
+   in the same call; the training step (rollout + Hungarian match +
+   update, B=16, 31 positions: a main run of 3 steps with 12 flash
+   launches each, every encoder parameter's gradient through flash,
+   ms/step, the device's idle share); ``run_training --mode DETR`` for 2
+   epochs of 8 steps (its launches counted) and ``serve_captions --mode
+   DETR --checkpoint_dir`` on its checkpoint, equal to the direct server;
+10. leftovers: ``train_critic`` on the written corpus (BCE falls; its
+   ``critic.cp`` installed gives the trained module's logits through the
+   cell kernels, 1e-4) and one ``run_training --mode verbose`` pass;
+11. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
    one B=16 warmstart step under ``torch.profiler`` (last: a profiled
    process launches more slowly).
 
@@ -402,6 +425,47 @@ def phase_kernels(K):
                 route_rec[route].add_main_shape(ms, pms, lms, nbytes, ops,
                                                 kind)
             del q, k, v
+    # the DETR's memory cross-attention (Sk = 128 memory rows, bf16): the
+    # token step of the greedy serve (32 clips, one query each) and of the
+    # B=256 greedy rate, the beam step (64 clips, the W = 4 beams of a clip
+    # as its queries) and the training decoder (B=16, 31 positions); each
+    # with a fully-masked row. Timed beside their own line of the record.
+    detr_sites = {}
+    for site, Bd, Sq in (("greedy step B=32", 32, 1),
+                         ("greedy step B=256", 256, 1),
+                         ("beam W=4 step, 64 clips", 64, 4),
+                         ("training decoder B=16", 16, 31)):
+        Sk = 128
+        q = randn(Bd, Sq, HD, dtype=torch.bfloat16)
+        k = randn(Bd, Sk, HD, dtype=torch.bfloat16)
+        v = randn(Bd, Sk, HD, dtype=torch.bfloat16)
+        lens = torch.randint(Sk // 2, Sk + 1, (Bd,), generator=g, device=dev)
+        mask = torch.arange(Sk, device=dev)[None] < lens[:, None]
+        mask[1] = False
+        e, route = flash_check(f"DETR {site} bf16", q, k, v, mask, H, False,
+                               1, TOL[torch.bfloat16])
+        if route != "tc":
+            raise AssertionError(f"flash DETR {site} took route {route}")
+        ms = time_ms(lambda: att.flash_attention_bsd(q, k, v, mask, H))
+        pms = time_ms(lambda: att.flash_attention_bsd_plain(q, k, v, mask,
+                                                            H))
+        qh, kh, vh = (x.view(Bd, -1, H, d).transpose(1, 2) for x in (q, k, v))
+        m4 = mask[:, None, None, :]
+        lms = time_ms(lambda: Fn.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=m4))
+        nbytes = (2 * Bd * Sq * HD + 2 * Bd * Sk * HD) * 2 + Bd * Sk * 4
+        ops = 4.0 * Bd * H * Sq * Sk * d
+        bms, by = bound_ms(nbytes, ops, "bf16")
+        detr_sites[site] = dict(B=Bd, Sq=Sq, Sk=Sk, ms=ms, plain_ms=pms,
+                                library_ms=lms, bound_ms=bms, bound_by=by,
+                                max_abs_err=e)
+        emit({"kernel": "flash_attention_tc", "case": f"DETR {site}",
+              "B": Bd, "Sq": Sq, "Sk": Sk, "H": H, "d": d, "dtype": "bf16",
+              "max_abs_err": e, "tol": TOL[torch.bfloat16], "kernel_ms": ms,
+              "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+              "bound_by": by})
+        del q, k, v
+    K["flash_tc"].rec["detr_cross_attention"] = detr_sites
     # the CUDA-core route's own path: the four encoder sites of one layer of
     # the reference phase's small f32 decode (B = 8, 2 heads of d = 128,
     # Sv = 128, Sa = 160), each with a fully-masked row
@@ -887,16 +951,14 @@ def forced_agreement(model, feats, masks, tokens):
     (small: the flips are near-ties)."""
     import torch
 
-    from bmhrl_tpu_torch.train.decode import _fast_setup
-
     B, L = tokens.shape
     V = feats["rgb"] + feats["flow"]
     with torch.no_grad():
         mem_k = model.encode(V, feats["audio"], masks)
         with plain_kernels():
             mem_p = model.encode(V, feats["audio"], masks)
-        ck, vk, step_k = _fast_setup(model, *mem_k, masks, B, L)
-        cp, vp, step_p = _fast_setup(model, *mem_p, masks, B, L)
+        ck, vk, step_k = model.fast_setup(*mem_k, masks, B, L)
+        cp, vp, step_p = model.fast_setup(*mem_p, masks, B, L)
         same, regret = [], 0.0
         for t in range(L - 1):
             tok_t = tokens[:, t]
@@ -979,16 +1041,14 @@ def score_gap(model, feats, masks, tokens, scores, end_idx, rows_per_clip):
     any cache wrongly shows above bf16 rounding."""
     import torch
 
-    from bmhrl_tpu_torch.train.decode import _fast_setup
-
     tokens = tokens.repeat_interleave(rows_per_clip, 0)
     scores = scores.repeat_interleave(rows_per_clip, 0)
     B, L = tokens.shape
     with torch.no_grad():
         Va, Av = model.encode(feats["rgb"] + feats["flow"], feats["audio"],
                               masks)
-        caches, valid, step = _fast_setup(model, Va, Av, masks, B, L,
-                                          beam_share=rows_per_clip)
+        caches, valid, step = model.fast_setup(Va, Av, masks, B, L,
+                                               beam_share=rows_per_clip)
         total = torch.zeros(B, device=tokens.device)
         ended = torch.zeros(B, dtype=torch.bool, device=tokens.device)
         for t in range(L - 1):
@@ -2502,6 +2562,488 @@ def phase_train_loop(K):
     return paths
 
 
+# --------------------------------------------------------------------------
+DETR_SMALL = dict(voc_size=40, d_model=256, d_model_caps=32, d_goal=16,
+                  nhead=2, num_layers=2, n_time=2, dim_ff=64, d_video=128)
+
+
+def build_detr(kwargs, device, seed=0, dout_p=0.1, flax_init=False):
+    """A ``DetrCaption(**kwargs)`` on ``device`` with random weights from
+    ``seed`` (the flax initialisers' values with ``flax_init``)."""
+    from bmhrl_tpu_torch.models.detr import DetrCaption
+    from bmhrl_tpu_torch.weights import load_jax_params, random_module_params
+
+    model = DetrCaption(**kwargs, dout_p=dout_p, device=device)
+    load_jax_params(model, random_module_params(model, seed, flax_init))
+    return model
+
+
+def detr_feats(B, d_v, device, seed, Sv=128, Sa=256):
+    """Features whose clips each carry a pattern of their own (uniform
+    noise alone averages to one memory for every clip)."""
+    import torch
+
+    f = make_feats(B, Sv, Sa, d_v, 128, "cpu", seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    f["rgb"] += 3.0 * torch.from_numpy(rng.randn(B, 1, d_v).astype(
+        np.float32))
+    return {k: v.to(device) for k, v in f.items()}
+
+
+def small_detr_card_vs_cpu():
+    """The small f32 DETR (default and pre-goal) decoded on the card
+    (kernels: the CUDA-core flash and folded routes) and on the CPU (plain
+    versions) with the same draws, in every mode: identical tokens. Then
+    one ``detr_update`` on each device from the same state and inputs:
+    losses and parameters within 1e-5. It runs with cuDNN's TF32 at
+    PyTorch's default (on): the model's f32 convolutions must not depend on
+    the caller's setting."""
+    import torch
+
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD
+    from bmhrl_tpu_torch.models.bmhrl import (BMManagerValueFunction,
+                                              BMWorkerValueFunction)
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.train.decode import beam_decode, decode
+    from bmhrl_tpu_torch.train.steps_detr import DetrStepFactory
+    from bmhrl_tpu_torch.weights import load_jax_params, random_module_params
+
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the small DETR check runs under PyTorch's "
+                             "default cuDNN setting (TF32 on)")
+    HostDraws = host_draws_class()
+    out = {}
+    for device in ("cuda", "cpu"):
+        res = {}
+        for pg in (False, True):
+            model = build_detr(dict(DETR_SMALL, dtype=torch.float32,
+                                    pre_goal_attention=pg), device, seed=4)
+            model.eval().requires_grad_(False)
+            with torch.no_grad():
+                model.linear.bias[EOS] += 1.5  # some captions end early
+            feats = detr_feats(8, 128, device, seed=4, Sa=160)
+            feats["rgb"][5] = 0.0  # a clip without features
+            masks = make_masks(feats)
+            args = (model, feats, masks, 12, BOS, EOS, PAD)
+            modes = {"greedy": lambda: decode(*args)[0],
+                     "beam4": lambda: beam_decode(*args, beam_width=4)[0]}
+            if not pg:
+                modes["sampled"] = lambda: decode(
+                    *args, greedy=False, draws=HostDraws(3, device),
+                    top_k=5)[0]
+                modes["full_greedy"] = lambda: decode(*args,
+                                                      use_fast=False)[0]
+            for name, run in modes.items():
+                res[f"{'pre_goal_' if pg else ''}{name}"] = run().cpu()
+        out[device] = res
+    # one training step, dropout 0, from the same state and inputs: the
+    # CPU rollout's samples and Hungarian targets go to both devices (an
+    # assignment's near-tie could otherwise differ)
+    upd = {}
+    for device in ("cpu", "cuda"):
+        model = build_detr(dict(DETR_SMALL, dtype=torch.float32), device,
+                           seed=5, dout_p=0.0)
+        nets = [load_jax_params(cls(32, device=device),
+                                random_module_params(cls(32, device="meta"),
+                                                     6 + i))
+                for i, cls in enumerate((BMWorkerValueFunction,
+                                         BMManagerValueFunction))]
+        sf = DetrStepFactory(Config(grad_clip=0.5), model, *nets, True)
+        state = sf.init_state()
+        batch = make_train_batch(4, Sv=128, Sa=160, Lc=8, voc=40, d_v=128,
+                                 device="cpu", seed=5)
+        batch = {k: v.to(device) for k, v in batch.items()}
+        if device == "cpu":
+            roll = sf.detr_rollout(state, batch, 1, HostDraws(1, device))
+            sampled = roll["sampled"]
+            tc = torch.from_numpy(sf.match_targets(roll["pred_classes"],
+                                                   roll["x_idx"]))
+            score = torch.from_numpy(np.random.RandomState(2).rand(
+                4, 8).astype(np.float32))
+        _, m = sf.detr_update(state, batch, 1, 1e-4, sampled.to(device),
+                              score.to(device), tc.to(device),
+                              HostDraws(1, device))
+        upd[device] = ({k: float(v) for k, v in m.items()},
+                       {n: p.detach().cpu() for n, p in
+                        model.named_parameters()})
+    same = {k: bool(torch.equal(out["cuda"][k], out["cpu"][k]))
+            for k in out["cuda"]}
+    (lc, pc), (lp, pp) = upd["cuda"], upd["cpu"]
+    loss_err = {k: abs(lc[k] - lp[k]) / max(abs(lp[k]), 1e-6) for k in lc}
+    param_err = max(float((pc[n] - pp[n]).abs().max()) for n in pc)
+    emit({"phase": "detr", "check": "small_card_vs_cpu", "dtype": "f32",
+          "tokens_identical": same, "update_losses": lc,
+          "update_loss_rel_err": loss_err,
+          "update_param_max_abs_err": param_err, "tol": 1e-5})
+    if (not all(same.values()) or max(loss_err.values()) > 1e-5
+            or param_err > 1e-5):
+        raise AssertionError("the small DETR disagrees card vs CPU")
+
+
+def detr_serve(model, reqs, cfg, itos, what, K, **opts):
+    """A serve of ``reqs`` by the DETR ``model`` as a main path (launches
+    zeroed just before, read just after); returns (sentences, launches)."""
+    import torch
+
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.serve import CaptionServer
+
+    CaptionServer(cfg, model, itos, device="cuda", **opts).caption(
+        reqs[:3], batch_size=32)  # warm-up
+    server = CaptionServer(cfg, model, itos, device="cuda", **opts)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    preds, stats = server.caption(reqs, batch_size=32)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    sents = [s["sentence"] for segs in preds["results"].values()
+             for s in segs]
+    emit({"phase": "detr", "serve": what, "options": opts,
+          "requests": len(reqs), "answered": len(sents),
+          "stats": stats.summary(), "launches": launches,
+          "example": sents[:3]})
+    if len(sents) != len(reqs):
+        raise AssertionError(f"DETR {what} serve: a request got no answer")
+    for name, n in launches.items():
+        K[name].rec[f"launches_detr_{what}_serve"] = n
+    return sents, launches
+
+
+def detr_train(K, cfg):
+    """The flagship DETR's training steps at B=16 (Sv=128, Sa=256, 31
+    positions): the main run (3 rollout + match + update steps, launches
+    counted), the encoder's gradients through flash, ms/step and the
+    device's idle share of a step."""
+    import torch
+
+    from bmhrl_tpu_torch.models.bmhrl import (BMManagerValueFunction,
+                                              BMWorkerValueFunction)
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.train import losses as L
+    from bmhrl_tpu_torch.train.steps_detr import DetrStepFactory
+    from bmhrl_tpu_torch.weights import load_jax_params, random_module_params
+
+    from bmhrl_tpu_torch.models.detr import DetrCaption
+
+    model = DetrCaption.build(cfg, VOC, "cuda")
+    load_jax_params(model, random_module_params(model, 0, flax_init=True))
+    nets = [load_jax_params(cls(300, device="cuda"), random_module_params(
+        cls(300, device="meta"), 1 + i, flax_init=True))
+        for i, cls in enumerate((BMWorkerValueFunction,
+                                 BMManagerValueFunction))]
+    sf = DetrStepFactory(cfg, model, *nets, emb_trainable=True)
+    state = sf.init_state()
+    batch = make_train_batch(16, seed=21)
+    # every encoder parameter gets a gradient through flash attention
+    d = sf.draws(0)
+    V, A, x_idx, y_idx, masks = sf._prep(batch, d)
+    out = model(V, A, x_idx, masks, deterministic=False, draws=d)
+    enc = {n: p for n, p in model.named_parameters()
+           if n.startswith("encoder.")}
+    grads = torch.autograd.grad(out[0].float().mean(), list(enc.values()))
+    zero = [n for n, g in zip(enc, grads) if not float(g.abs().sum()) > 0]
+    if zero:
+        raise AssertionError(f"encoder parameters without gradient: {zero}")
+    del out, grads
+
+    def step(seed):
+        nonlocal state
+        roll = sf.detr_rollout(state, batch, seed)
+        host = {k: roll[k].cpu().numpy() for k in ("sampled",
+                                                     "pred_classes",
+                                                     "x_idx")}
+        tc = torch.from_numpy(sf.match_targets(host["pred_classes"],
+                                               host["x_idx"])).cuda()
+        score = torch.from_numpy(
+            (host["sampled"] % 7 == 0).astype(np.float32)).cuda()
+        state, m = sf.detr_update(state, batch, seed, 1e-4, roll["sampled"],
+                                  score, tc)
+        return m
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    losses = [step(s) for s in range(3)]
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    for name, n in launches.items():
+        K[name].rec["launches_detr_train"] = n
+    moved = sum(not torch.equal(before[n], p)
+                for n, p in model.named_parameters())
+    finite = all(torch.isfinite(p).all() for p in model.parameters())
+    emit({"phase": "detr", "train_main_run": "3 steps (rollout + Hungarian "
+          "match + detr_update), B=16", "launches": launches,
+          "losses": [{k: float(v) for k, v in m.items()} for m in losses],
+          "params_moved": moved, "params": len(before),
+          "all_finite": finite})
+    # 6 flash sites a forward (3 encoder self-attentions, 3 decoder
+    # memory cross-attentions) x 2 forwards a step
+    if launches["flash_attention_tc"] != 3 * 2 * 6 or not finite:
+        raise AssertionError(f"DETR training launches {launches}")
+    if launches["flash_attention_simt"] or launches["folded_attend_tc"]:
+        raise AssertionError(f"DETR training took another route: "
+                             f"{launches}")
+    ms, samples = step_ms(lambda: step(7))
+    # the device's idle share of one step
+    from torch.profiler import ProfilerActivity, profile
+
+    step(8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("detr_step"):
+            step(9)
+        torch.cuda.synchronize()
+    (_, wall, busy, n), = span_busy(prof, "detr_step")
+    emit({"phase": "detr", "what": "train step", "B": 16, "Sv": 128,
+          "Sa": 256, "positions": 31, "ms_per_step": ms, "samples": samples,
+          "profiled_wall_ms": wall, "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / wall, "device_launches": n})
+    del sf, state, model
+    torch.cuda.empty_cache()
+
+
+def detr_loop_and_cli(K, itos_reqs):
+    """``run_training --mode DETR`` for 2 epochs of 8 steps on the written
+    corpus (the loop's main path, launches counted), then
+    ``serve_captions --mode DETR --checkpoint_dir`` on its epoch-0
+    checkpoint: the submissions of the direct server over the same
+    weights."""
+    import torch
+
+    from bmhrl_tpu_torch.cli import run_training as pcli
+    from bmhrl_tpu_torch.cli import serve_captions as pserve
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import build_vocab_from_tsv
+    from bmhrl_tpu_torch.serve import CaptionServer
+    from bmhrl_tpu_torch.train.loop import build_model
+    from bmhrl_tpu_torch.utils.checkpoint import load_model_params
+
+    root = tempfile.mkdtemp()
+    paths = write_loop_corpus(root)
+    argv = ["--device", "cuda", "--mode", "DETR", "--train_meta_path",
+            paths["train"], "--val_1_meta_path", paths["val_1"],
+            "--vatex_meta_path", paths["val_1"] + ".absent",
+            "--msrvtt_meta_path", paths["val_1"] + ".absent",
+            "--video_features_path", paths["video_features_path"],
+            "--audio_features_path", paths["audio_features_path"],
+            "--reference_paths", *(paths["ref"],) * 4, "--rl_critic_path",
+            paths["ref"] + ".absent", "--B", "16", "--scorer", "METEOR",
+            "--log_dir", os.path.join(root, "log"), "--epoch_num", "2",
+            "--max_steps_per_epoch", str(LOOP_STEPS),
+            "--one_by_one_starts_at", "1"]
+    t0 = time.perf_counter()
+    out, _, launches = run_cli(pcli.main, argv)
+    emit({"phase": "detr", "loop": "run_training --mode DETR",
+          "seconds": time.perf_counter() - t0, "launches": launches,
+          "epochs": [{k: r[k] for k in ("epoch", "phase", "steps", "loss",
+                                        "train_s")}
+                     | {"ms_per_step": {n: s["p50_ms"] for n, s in
+                                        r["timer"].items()
+                                        if "p50_ms" in s}}
+                     for r in out["epochs"]]})
+    for name, n in launches.items():
+        K[name].rec["launches_detr_loop"] = n
+    if ([(r["phase"], r["steps"]) for r in out["epochs"]]
+            != [("detr", LOOP_STEPS)] * 2
+            or not all(math.isfinite(r["loss"]) for r in out["epochs"])):
+        raise AssertionError(f"DETR loop records {out['epochs']}")
+    if launches["flash_attention_tc"] <= 0 or launches["folded_attend_tc"] \
+            <= 0:
+        raise AssertionError(f"DETR loop launches {launches}")
+    ckpt = os.path.join(out["step_factory"].cfg.model_checkpoint_path,
+                        "checkpoints", "E_0")
+    del out
+    torch.cuda.empty_cache()
+
+    vdir, adir, reqs = itos_reqs
+    sub = os.path.join(root, "detr_sub.json")
+    _, lines, cli_launches = run_cli(pserve.main, [
+        "--meta", paths["val_1"], "--video_features_path",
+        paths["video_features_path"], "--audio_features_path",
+        paths["audio_features_path"], "--train_meta_path", paths["train"],
+        "--mode", "DETR", "--checkpoint_dir", ckpt, "--batch_size", "32",
+        "--out", sub])
+    cfg = Config(mode="DETR", to_log=False,
+                 video_features_path=paths["video_features_path"],
+                 audio_features_path=paths["audio_features_path"])
+    vocab = build_vocab_from_tsv(paths["train"])
+    model = load_model_params(ckpt, build_model(cfg, len(vocab), "cuda"))
+    from bmhrl_tpu_torch.serve import read_meta_tsv
+
+    want, _ = CaptionServer(cfg, model.eval().requires_grad_(False),
+                            vocab.itos, device="cuda").caption(
+        read_meta_tsv(paths["val_1"]), batch_size=32)
+    got = json.load(open(sub))
+    emit({"phase": "detr", "cli": "serve_captions --mode DETR "
+          "--checkpoint_dir", "requests": 32, "equal_to_direct_server":
+          got == want, "launches": cli_launches, "stats": lines[-1]})
+    if got != want:
+        raise AssertionError("the DETR CLI's submissions differ from the "
+                             "direct server's")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_detr(K, bimodal):
+    """The DETR captioner: small f32 card = CPU; the flagship (bf16,
+    vocabulary 10172, random weights) serving the 64 requests greedily
+    (the main path) and with beam W=4, the pre-goal flagship serving 8
+    requests (the cell kernels' main path), per-step agreement with the
+    plain versions, host syncs per token, clips/s beside the bimodal
+    flagship's greedy B=256; training steps; the loop and the CLI."""
+    import torch
+
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import BOS, PAD, SPECIALS
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.train.decode import beam_decode, decode
+
+    small_detr_card_vs_cpu()
+    cfg = Config(mode="DETR")
+    itos = SPECIALS + [f"w{i}" for i in range(VOC - 4)]
+    model = build_detr(dict(voc_size=VOC), "cuda")
+    model.eval().requires_grad_(False)
+    emit({"phase": "detr", "params": sum(p.numel()
+                                         for p in model.parameters())})
+    root = tempfile.mkdtemp()
+    vdir, adir, reqs = write_requests(root)
+    scfg = cfg.replace(video_features_path=vdir, audio_features_path=adir)
+    _, launches = detr_serve(model, reqs, scfg, itos, "greedy", K)
+    if (launches["flash_attention_tc"] <= 0
+            or launches["folded_attend_tc"] <= 0
+            or launches["flash_attention_simt"]
+            or launches["folded_attend_simt"]):
+        raise AssertionError(f"DETR greedy serve launches {launches}")
+    detr_serve(model, reqs, scfg, itos, "beam", K, beam_width=4,
+               length_penalty=1.0)
+    pg = build_detr(dict(voc_size=VOC, pre_goal_attention=True), "cuda",
+                    seed=1).eval().requires_grad_(False)
+    _, launches = detr_serve(pg, reqs[:8], scfg, itos, "pre_goal", K)
+    if launches["lstm_cell"] <= 0 or launches["gru_cell"] <= 0:
+        raise AssertionError(f"pre-goal serve launches {launches}")
+    del pg
+    torch.cuda.empty_cache()
+
+    # K3 at the object attention of the DETR's token step (B=256 clips,
+    # G = 4 heads, S = 100 objects, draw 256, bf16 objects, no mask)
+    from bmhrl_tpu_torch.ops import attention as att
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    qe = torch.randn(256, 4, 256, device="cuda", generator=gen)
+    mem = torch.randn(256, 100, 256, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    scale = 1.0 / 16.0
+    err = check_close("folded DETR objects",
+                      att.folded_attend(qe, mem, None, scale),
+                      att.folded_attend_plain(qe, mem, None, scale), 1e-4)
+    ms, ems, pms, lms, nbytes, ops = folded_times(qe, mem, None, scale)
+    bms, by = bound_ms(nbytes, ops, "f32")
+    rec = dict(ms=ms, eager_ms=ems, plain_ms=pms, library_ms=lms,
+               bound_ms=bms, bound_by=by, max_abs_err=err)
+    K["folded_tc"].rec["detr_objects_B256_G4_S100"] = rec
+    K["folded_tc"].err(err)
+    emit({"kernel": "folded_attend_tc", "case": "DETR objects, B=256, G=4, "
+          "S=100, draw=256", **rec})
+
+    feats = detr_feats(64, 1024, "cuda", seed=31)
+    masks = make_masks(feats)
+    tok_k, prob_k = decode(model, feats, masks, 30, BOS, -1, PAD)
+    with plain_kernels():
+        tok_p, _ = decode(model, feats, masks, 30, BOS, -1, PAD)
+    forced, regret = forced_agreement(model, feats, masks, tok_p)
+    per_token, where = syncs_per_token(
+        lambda n: decode(model, feats, masks, n, BOS, -1, PAD))
+    emit({"phase": "detr", "check": "plain_vs_kernels", "B": 64,
+          "token_agreement": forced, "min_required": 0.95,
+          "max_logprob_gap_where_they_differ": regret,
+          "free_running_token_agreement": float(
+              (tok_k == tok_p).float()[:, 1:].mean()),
+          "host_syncs_per_token": per_token, "sync_sites": where})
+    if forced < 0.95 or not torch.isfinite(prob_k).all():
+        raise AssertionError(f"DETR token agreement {forced}")
+    if abs(per_token - 1.0) > 1e-9:
+        raise AssertionError(f"DETR greedy syncs {per_token} per token")
+
+    for B in (32, 256):
+        feats = detr_feats(B, 1024, "cuda", seed=B)
+        masks = make_masks(feats)
+        throughput(lambda: decode(model, feats, masks, 30, BOS, -1, PAD), B,
+                   model="DETR", mode="greedy", B=B)
+        if B == 256:
+            throughput(lambda: decode(bimodal, feats, masks, 30, BOS, -1,
+                                      PAD), B, model="BMHRL",
+                       mode="greedy", B=B)
+            throughput(lambda: decode(model, feats, masks, 30, BOS, -1, PAD,
+                                      greedy=False), B, model="DETR",
+                       mode="sampled", B=B)
+    feats = detr_feats(64, 1024, "cuda", seed=64)
+    masks = make_masks(feats)
+    throughput(lambda: beam_decode(model, feats, masks, 30, BOS, -1, PAD,
+                                   beam_width=4), 64, model="DETR",
+               mode="beam W=4", B=64)
+    del model
+    torch.cuda.empty_cache()
+    detr_train(K, cfg)
+    detr_loop_and_cli(K, (vdir, adir, reqs))
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_leftovers(K):
+    """``train_critic`` on a generated corpus (its ``critic.cp`` installed
+    into the flagship's critic gives the trained module's logits through
+    the cell kernels) and one ``run_training --mode verbose`` pass."""
+    import torch
+
+    from bmhrl_tpu_torch.cli import run_training as pcli
+    from bmhrl_tpu_torch.cli import train_critic as tcli
+    from bmhrl_tpu_torch.models.critic import SegmentCritic
+    from bmhrl_tpu_torch.utils.checkpoint import (export_torch_critic,
+                                                  install_critic)
+
+    root = tempfile.mkdtemp()
+    paths = write_loop_corpus(root)
+    args = tcli.build_parser().parse_args([
+        "--corpus_json", paths["ref"], "--train_meta_path", paths["train"],
+        "--epochs", "4", "--batch_size", "8", "--lr", "1e-3",
+        "--device", "cuda"])
+    t0 = time.perf_counter()
+    trained, bces = tcli.train(args)
+    out = export_torch_critic(trained.critic, os.path.join(root, "c.cp"))
+    holder = torch.nn.Module()
+    holder.critic = SegmentCritic(300, "cuda")
+    install_critic(holder, out)
+    tokens = torch.randint(4, 1000, (16, 24), device="cuda")
+    with torch.no_grad():
+        emb = trained.emb(tokens)
+        want = trained.critic.logits_trainable(emb)
+        got = holder.critic(emb)  # the frozen forward: cell kernels
+    err = float((got - want).abs().max())
+    emit({"phase": "leftovers", "cli": "train_critic", "epochs": 4,
+          "bce": bces, "seconds": time.perf_counter() - t0,
+          "installed_vs_trained_logits_max_abs_err": err, "tol": 1e-4})
+    if not bces[-1] < bces[0] or err > 1e-4:
+        raise AssertionError("critic pretraining did not learn or its "
+                             "critic.cp does not reproduce it")
+    recs, _, launches = run_cli(pcli.main, [
+        "--device", "cuda", "--mode", "verbose", "--train_meta_path",
+        paths["train"], "--val_1_meta_path", paths["val_1"] + ".absent",
+        "--vatex_meta_path", paths["val_1"] + ".absent",
+        "--msrvtt_meta_path", paths["val_1"] + ".absent",
+        "--video_features_path", paths["video_features_path"],
+        "--audio_features_path", paths["audio_features_path"],
+        "--rl_critic_path", out, "--B", "16", "--scorer", "METEOR",
+        "--dont_log", "--max_steps_per_epoch", "1"])
+    emit({"phase": "leftovers", "cli": "run_training --mode verbose",
+          "batches": len(recs), "launches": launches,
+          "plain_sum": float(recs[0]["plain"].sum()),
+          "biased_sum": float(recs[0]["biased"].sum())})
+    if len(recs) != 1 or not np.isfinite(recs[0]["biased"]).all():
+        raise AssertionError("the verbose pass failed")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def span_busy(prof, prefix):
     """Per record_function span whose name starts with ``prefix``: its wall
     ms and the device ms of the kernels that ran inside it."""
@@ -2601,9 +3143,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
-    # exact f32 products everywhere (the defaults, stated)
+    # exact f32 products in cuBLAS (PyTorch's default, stated). cuDNN's
+    # TF32 stays at its default (on), as the entry points find it: the
+    # DETR's f32 convolutions turn it off themselves.
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
 
@@ -2657,6 +3200,8 @@ def main() -> int:
               ("train", lambda: made.update(train=phase_train(K))),
               ("train_loop",
                lambda: made.update(train_loop=phase_train_loop(K))),
+              ("detr", lambda: phase_detr(K, made["serve"])),
+              ("leftovers", lambda: phase_leftovers(K)),
               # the profiler runs last: once it has traced, the host
               # launches more slowly
               ("profile", lambda: (profile_decode(made["serve"]),

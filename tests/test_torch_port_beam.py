@@ -30,7 +30,7 @@ from bmhrl_tpu_torch.config import Config
 from bmhrl_tpu_torch.ops import attention as att
 from bmhrl_tpu_torch.ops.masking import make_masks
 from bmhrl_tpu_torch.serve import CaptionServer, ClipRequest
-from bmhrl_tpu_torch.train.decode import _fast_setup, beam_decode, decode
+from bmhrl_tpu_torch.train.decode import beam_decode, decode
 from bmhrl_tpu_torch.weights import random_jax_layout_params
 
 SCORE_TOL = 1e-4
@@ -130,8 +130,8 @@ def test_beam_score_is_sum_of_token_logprobs(tree):
                                beam_width=W)
     with torch.no_grad():
         Va, Av = model.encode(f["rgb"] + f["flow"], f["audio"], masks)
-        caches, valid, step = _fast_setup(model, Va, Av, masks, 3,
-                                          MAX_LEN + 1)
+        caches, valid, step = model.fast_setup(Va, Av, masks, 3,
+                                               MAX_LEN + 1)
         total = torch.zeros(3)
         ended = torch.zeros(3, dtype=torch.bool)
         for t in range(MAX_LEN):

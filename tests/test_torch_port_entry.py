@@ -8,7 +8,9 @@ Everything compared here is exact: request lists, token lists,
 vocabularies, GloVe rows and weight arrays are equal, and the CLIs' f32
 submissions are identical (the decoded tokens are)."""
 import dataclasses
+import importlib
 import json
+import os
 
 import numpy as np
 import pytest
@@ -226,10 +228,16 @@ def test_build_model_selects_by_mode(mode, cls, modality):
 
 
 def test_build_model_refuses_detr():
+    """DETR is ported: the mode builds the DETR captioner, the pre-goal
+    variant with its critic and manager decoder."""
     from bmhrl_tpu_torch.train.loop import build_model
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(Config(mode="DETR"), 20, "meta")
+    model = build_model(Config(mode="DETR"), 20, "meta")
+    assert type(model).__name__ == "DetrCaption"
+    assert not hasattr(model, "critic") and model.voc_size == 20
+    model = build_model(Config(mode="DETR", pre_goal_attention=True), 20,
+                        "meta")
+    assert hasattr(model, "critic") and hasattr(model, "manager_decoder")
 
 
 # ---- the CLIs, port vs JAX -------------------------------------------------
@@ -314,18 +322,41 @@ def test_serve_captions_cli_matches_jax(corpus, serve_pt, tmp_path, extra,
     (["--from_bundle", "b"], "not ported yet")])
 def test_serve_captions_cli_refuses_what_is_not_ported(corpus, tmp_path,
                                                         flags, message):
+    """The flags the port lacks exit "not ported yet"; --checkpoint_dir
+    reads the port's own checkpoints and refuses an orbax directory (the
+    JAX package's) with the export message."""
     from bmhrl_tpu_torch.cli.serve_captions import main
 
+    if flags[0] == "--checkpoint_dir":
+        os.makedirs(tmp_path / "ckpt" / "state")
+        flags = ["--checkpoint_dir", str(tmp_path / "ckpt")]
     with pytest.raises(SystemExit, match=message) as e:
         main(["--proposals", corpus["proposals"], "--video_features_path",
               "v", "--audio_features_path", "a", "--out",
               str(tmp_path / "o.json"), "--device", "cpu"] + flags)
-    assert "not ported yet" in str(e.value)
+    assert ("orbax" if flags[0] == "--checkpoint_dir"
+            else "not ported yet") in str(e.value)
+
+
+@pytest.mark.parametrize("cli", ["serve_captions", "single_video"])
+def test_serving_clis_refuse_two_weight_sources(corpus, tmp_path, cli):
+    """--checkpoint_dir with --torch_checkpoint exits before anything is
+    read: neither source silently wins."""
+    import importlib
+
+    main = importlib.import_module(f"bmhrl_tpu_torch.cli.{cli}").main
+    inputs = (["--proposals", corpus["proposals"], "--video_features_path",
+               "v", "--audio_features_path", "a", "--out",
+               str(tmp_path / "o.json")] if cli == "serve_captions"
+              else ["--rgb", "r", "--flow", "f", "--audio", "a"])
+    with pytest.raises(SystemExit, match="two sources of weights"):
+        main(inputs + ["--device", "cpu", "--checkpoint_dir",
+                       str(tmp_path / "ckpt"), "--torch_checkpoint", "x.pt"])
 
 
 def test_serve_captions_cli_modes(corpus, serve_pt, tmp_path):
-    """--torch_checkpoint is BMHRL only (the JAX CLI's message); AHRL
-    serves with random weights; DETR is not ported."""
+    """--torch_checkpoint is BMHRL only (the JAX CLI's message); AHRL and
+    DETR serve with random weights."""
     from bmhrl_tpu_torch.cli.serve_captions import main
 
     out = str(tmp_path / "o.json")
@@ -337,5 +368,4 @@ def test_serve_captions_cli_modes(corpus, serve_pt, tmp_path):
     i = args.index("--torch_checkpoint")
     del args[i:i + 2]
     assert main(args + ["--mode", "AHRL"]).clips == 11
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(args + ["--mode", "DETR"])
+    assert main(args + ["--mode", "DETR"]).clips == 11
