@@ -7,7 +7,12 @@ unimodal ablations (AHRL, VHRL) and the DETR captioner
 (``models.detr``), and their training (the steps
 ``train.steps.StepFactory`` and ``train.steps_detr.DetrStepFactory``, the
 loop ``train.loop.train_rl_cap``, run by the CLIs ``cli.run_training`` and
-``cli.synthetic_proof``; the critic's pretraining, ``cli.train_critic``).
+``cli.synthetic_proof``; the critic's pretraining, ``cli.train_critic``),
+and dense captioning's first stage: the event-proposal generator
+(``models.proposal.MultimodalProposalGenerator``), trained by
+``cli.train_proposals`` (``train.steps_proposal.ProposalStepFactory``)
+and served with the captioner by ``cli.dense_caption`` (propose segments,
+then caption them).
 
 The JAX package ``bmhrl_tpu`` is the reference and is never imported here.
 Entry points take a ``device`` argument: ``"cuda"`` by default (an error

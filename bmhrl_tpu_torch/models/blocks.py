@@ -12,6 +12,7 @@ dropout).
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Optional, Tuple
 
 import numpy as np
@@ -109,6 +110,81 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class FeatureEmbedder(nn.Module):
+    """flax ``FeatureEmbedder``: ``embedder`` (a ``Dense`` in the compute
+    dtype) times sqrt(d_model) in that dtype, then ReLU."""
+
+    def __init__(self, d_in: int, d_model: int, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.embedder = Dense(d_in, d_model, dtype, device)
+        self.scale = math.sqrt(d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.embedder(x)
+        return torch.relu(x * torch.tensor(self.scale, dtype=x.dtype).item())
+
+
+@contextmanager
+def _cudnn_without_tf32():
+    """cuDNN with TF32 off for the block, the caller's setting restored
+    after (``torch.backends.cudnn.allow_tf32`` is True by default)."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = before
+
+
+class _ExactConv1d(torch.autograd.Function):
+    """``F.conv1d(x, w, b)`` (stride 1, no padding) whose forward AND
+    backward run with cuDNN's TF32 off: autograd runs the backward after
+    the forward's scope has closed, so a switch around the forward alone
+    would leave the gradients in TF32."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        with _cudnn_without_tf32():
+            return F.conv1d(x, w, b)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        with _cudnn_without_tf32():
+            return torch.ops.aten.convolution_backward(
+                gy.contiguous(), x, w, [w.shape[0]], [1], [0], [1], False,
+                [0], 1, list(ctx.needs_input_grad))
+
+
+class ConvSame(nn.Conv1d):
+    """flax ``nn.Conv(kernel_size=(k,), padding="SAME", dtype=dtype)`` on
+    (B, L, C): pads (k-1)//2 before and k//2 after (an even kernel pads one
+    more on the right), computes in ``dtype``. The weight is torch's
+    (out, in, k); the flax kernel (k, in, out) is its full transpose. An
+    f32 convolution runs with cuDNN's TF32 off, forward and backward,
+    whatever the caller's setting: flax's f32 ``Conv`` is exact f32.
+    ``torch_bias_init``: the JAX module initialises the bias as torch does
+    (uniform in ±1/sqrt(fan-in); the DETR's projections), not at zero;
+    ``weights.random_module_params(flax_init=True)`` reads it."""
+
+    def __init__(self, d_in: int, d_out: int, k: int, dtype, device=None,
+                 torch_bias_init: bool = False):
+        super().__init__(d_in, d_out, k, device=device)
+        self.compute_dtype = dtype
+        self.torch_bias_init = torch_bias_init
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel_size[0]
+        dt = self.compute_dtype
+        x = F.pad(x.to(dt).transpose(1, 2), ((k - 1) // 2, k // 2))
+        w, b = self.weight.to(dt), self.bias.to(dt)
+        conv = _ExactConv1d.apply if dt == torch.float32 else F.conv1d
+        return conv(x, w, b).transpose(1, 2)
 
 
 # rows of the positional table (the reference's)

@@ -31,16 +31,15 @@ are stubs that give no boundary, as in the reference's executed path.
 from __future__ import annotations
 
 import math
-from contextlib import contextmanager
 from typing import Dict, List, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from bmhrl_tpu_torch import resolve_device
 from bmhrl_tpu_torch.models.attention import MultiheadedAttention
-from bmhrl_tpu_torch.models.blocks import (Dense, Draws, PositionalEncoder,
+from bmhrl_tpu_torch.models.blocks import (ConvSame, Dense, Draws,
+                                           PositionalEncoder,
                                            VocabularyEmbedder, dropout)
 from bmhrl_tpu_torch.models.bmhrl import Manager
 from bmhrl_tpu_torch.models.critic import SegmentCritic
@@ -53,61 +52,6 @@ NEG_INF = -1e9
 def _ln(norm: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
     """flax ``LayerNorm`` in f32, cast back to the compute dtype."""
     return norm(x.float()).to(dtype)
-
-
-@contextmanager
-def _cudnn_without_tf32():
-    """cuDNN with TF32 off for the block, the caller's setting restored
-    after (``torch.backends.cudnn.allow_tf32`` is True by default)."""
-    cudnn = torch.backends.cudnn
-    before = cudnn.allow_tf32
-    cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32 = before
-
-
-class _ExactConv1d(torch.autograd.Function):
-    """``F.conv1d(x, w, b)`` (stride 1, no padding) whose forward AND
-    backward run with cuDNN's TF32 off: autograd runs the backward after
-    the forward's scope has closed, so a switch around the forward alone
-    would leave the gradients in TF32."""
-
-    @staticmethod
-    def forward(ctx, x, w, b):
-        ctx.save_for_backward(x, w)
-        with _cudnn_without_tf32():
-            return F.conv1d(x, w, b)
-
-    @staticmethod
-    def backward(ctx, gy):
-        x, w = ctx.saved_tensors
-        with _cudnn_without_tf32():
-            return torch.ops.aten.convolution_backward(
-                gy.contiguous(), x, w, [w.shape[0]], [1], [0], [1], False,
-                [0], 1, list(ctx.needs_input_grad))
-
-
-class ConvSame(nn.Conv1d):
-    """flax ``nn.Conv(kernel_size=(k,), padding="SAME", dtype=dtype)`` on
-    (B, L, C): pads (k-1)//2 before and k//2 after (an even kernel pads one
-    more on the right), computes in ``dtype``. The weight is torch's
-    (out, in, k); the flax kernel (k, in, out) is its full transpose. An
-    f32 convolution runs with cuDNN's TF32 off, forward and backward,
-    whatever the caller's setting: flax's f32 ``Conv`` is exact f32."""
-
-    def __init__(self, d_in: int, d_out: int, k: int, dtype, device=None):
-        super().__init__(d_in, d_out, k, device=device)
-        self.compute_dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.kernel_size[0]
-        dt = self.compute_dtype
-        x = F.pad(x.to(dt).transpose(1, 2), ((k - 1) // 2, k // 2))
-        w, b = self.weight.to(dt), self.bias.to(dt)
-        conv = _ExactConv1d.apply if dt == torch.float32 else F.conv1d
-        return conv(x, w, b).transpose(1, 2)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -361,7 +305,7 @@ class DetrCaption(nn.Module):
         for i in range(n_time):
             self.add_module(f"input_proj_{i}", ConvSame(
                 d_video if i == 0 else d_model, d_model, 3 * (i + 1), dtype,
-                device))
+                device, torch_bias_init=True))
             self.add_module(f"input_norm_{i}", GroupNorm(
                 32, d_model, eps=1e-5, device=device))
         self.encoder = DetrEncoder(d_model, nhead, dim_ff, dout_p,

@@ -7,6 +7,10 @@ files (the port of bmhrl_tpu/utils/checkpoint.py):
   directory (the training loop's ``.../checkpoints/E_{n}/``);
 - ``load_model_params``: a checkpoint's captioner parameters alone, for
   the serving CLIs' ``--checkpoint_dir``;
+- ``save_proposal_checkpoint`` / ``load_proposal_checkpoint``: the
+  proposal generator's parameters, Adam state and step (``props.pt``,
+  ``cli.train_proposals``'s best-F1 checkpoint; ``anchors.npy`` lies
+  beside it);
 - ``load_torch_critic`` / ``install_critic`` / ``export_torch_critic``:
   the reference's pretrained segment critic (``critic.cp``), which
   ``cli.train_critic`` writes;
@@ -16,7 +20,8 @@ files (the port of bmhrl_tpu/utils/checkpoint.py):
 
 Orbax checkpoints (the JAX package's own format) are out of reach here:
 orbax imports JAX. A directory that holds one is refused with a message;
-the JAX package's ``export_torch_bmhrl`` writes its weights as a ``.pt``."""
+the JAX package's ``export_torch_bmhrl`` writes a captioner's weights as a
+``.pt``."""
 from __future__ import annotations
 
 import os
@@ -28,18 +33,29 @@ import torch
 # the files of a port checkpoint, one per component
 COMPONENTS = ("cap_params", "wv_params", "mv_params", "cap_opt", "wv_opt",
               "mv_opt")
+# the proposal generator's checkpoint: one file, named as the JAX CLI's
+# orbax directory; anchors.npy lies beside it
+PROPOSAL_NAME = "props"
 ORBAX_MESSAGE = ("{} holds a checkpoint of the JAX package (orbax), which "
-                 "the port cannot read: export its weights as a reference "
-                 ".pt with bmhrl_tpu.utils.checkpoint.export_torch_bmhrl")
+                 "the port cannot read: {}")
+_ORBAX_REMEDY = {
+    "state": "export its weights as a reference .pt with "
+             "bmhrl_tpu.utils.checkpoint.export_torch_bmhrl",
+    PROPOSAL_NAME: "train the proposal generator with "
+                   "bmhrl_tpu_torch.cli.train_proposals"}
 
 
-def refuse_orbax(ckpt_dir: str) -> None:
-    """Exit with a message when ``ckpt_dir`` is not a port checkpoint."""
+def refuse_orbax(ckpt_dir: str, name: str = "state") -> None:
+    """Exit with a message when ``ckpt_dir`` is not a port checkpoint: of
+    the training state (``name`` "state", the JAX package's orbax name for
+    it) or of the proposal generator (``PROPOSAL_NAME``)."""
+    files = COMPONENTS if name == "state" else (name,)
     if not all(os.path.exists(os.path.join(ckpt_dir, f"{c}.pt"))
-               for c in COMPONENTS):
-        raise SystemExit(ORBAX_MESSAGE.format(ckpt_dir)
-                         if os.path.isdir(os.path.join(ckpt_dir, "state"))
-                         else f"{ckpt_dir} is not a checkpoint of the port")
+               for c in files):
+        raise SystemExit(
+            ORBAX_MESSAGE.format(ckpt_dir, _ORBAX_REMEDY[name])
+            if os.path.isdir(os.path.join(ckpt_dir, name))
+            else f"{ckpt_dir} is not a checkpoint of the port")
 
 
 def _cpu(t: torch.Tensor) -> torch.Tensor:
@@ -115,6 +131,42 @@ def load_model_params(ckpt_dir: str, model):
     refuse_orbax(ckpt_dir)
     _copy_params(ckpt_dir, "cap", _read(ckpt_dir, "cap_params"), model)
     return model
+
+
+def save_proposal_checkpoint(ckpt_dir: str, model, state) -> str:
+    """Write the proposal generator's parameters and ``state`` (a
+    ``train.steps_proposal.ProposalState``: Adam state and step) into
+    ``ckpt_dir/props.pt``; returns the file's path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    obj = {"params": {n: _cpu(p) for n, p in model.named_parameters()},
+           "opt": {"count": dict(state.opt.count),
+                   "mu": {n: _cpu(v) for n, v in state.opt.mu.items()},
+                   "nu": {n: _cpu(v) for n, v in state.opt.nu.items()}},
+           "step": int(state.step)}
+    path = os.path.join(ckpt_dir, f"{PROPOSAL_NAME}.pt")
+    torch.save(obj, f"{path}.tmp")
+    os.replace(f"{path}.tmp", path)
+    return path
+
+
+@torch.no_grad()
+def load_proposal_checkpoint(ckpt_dir: str, model, state):
+    """Copy a proposal checkpoint's parameters into ``model`` (strict) and
+    return its ``ProposalState`` on the model's device, in the structure
+    of ``state``. A JAX CLI's log directory (orbax ``props/``) is refused
+    with a message."""
+    from bmhrl_tpu_torch.train.optim import AdamState
+
+    refuse_orbax(ckpt_dir, PROPOSAL_NAME)
+    saved = _read(ckpt_dir, PROPOSAL_NAME)
+    _copy_params(ckpt_dir, PROPOSAL_NAME, saved["params"], model)
+    opt, like = saved["opt"], state.opt
+    return state._replace(
+        opt=AdamState(
+            count={n: int(opt["count"][n]) for n in like.count},
+            mu={n: opt["mu"][n].to(v.device) for n, v in like.mu.items()},
+            nu={n: opt["nu"][n].to(v.device) for n, v in like.nu.items()}),
+        step=int(saved["step"]))
 
 
 def load_torch_critic(path: str) -> Dict[str, Any]:

@@ -1,6 +1,6 @@
 """Weights in the JAX package's layout: load a flax variable tree into the
-port (the agent or a value function), or make a random one from a numpy
-seed.
+port (a captioner, a value function or the proposal generator), or make a
+random one from a numpy seed.
 
 The port's module and parameter names follow the flax param tree, so the map
 is by rule: a path ``a/b/c/leaf`` of the tree is the parameter ``a.b.c.X``,
@@ -8,8 +8,9 @@ where X depends on the owning module:
 
 - ``Dense`` (an ``nn.Linear``): ``kernel`` (in, out) <-> ``weight`` (out, in),
   transposed; ``bias`` <-> ``bias``;
-- ``nn.Conv1d`` (the DETR's temporal projections): ``kernel`` (k, in, out)
-  <-> ``weight`` (out, in, k), all axes reversed; ``bias`` <-> ``bias``;
+- ``nn.Conv1d`` (the DETR's temporal projections, the proposal heads'
+  convolutions): ``kernel`` (k, in, out) <-> ``weight`` (out, in, k), all
+  axes reversed; ``bias`` <-> ``bias``;
 - ``nn.LayerNorm`` and ``nn.GroupNorm``: ``scale`` <-> ``weight``;
   ``bias`` <-> ``bias``;
 - ``nn.Embedding``: ``embedding`` <-> ``weight``;
@@ -84,13 +85,17 @@ def random_jax_layout_params(dims: Dict, seed: int = 0) -> Dict:
     the keys and shapes that the JAX package's ``init`` of the agent gives
     (``random_module_params`` of the agent's shapes): ``UnimodalAgent`` when
     ``dims`` name a ``modality`` (AHRL/VHRL), ``DetrCaption`` when they
-    name ``n_time`` (DETR), else ``BMHrlAgent``."""
+    name ``n_time`` (DETR), ``MultimodalProposalGenerator`` when they name
+    ``num_anchors`` (the proposal generator), else ``BMHrlAgent``."""
     from bmhrl_tpu_torch.models.bmhrl import BMHrlAgent
     from bmhrl_tpu_torch.models.detr import DetrCaption
+    from bmhrl_tpu_torch.models.proposal import MultimodalProposalGenerator
     from bmhrl_tpu_torch.models.unimodal import UnimodalAgent
 
     cls = (UnimodalAgent if "modality" in dims
-           else DetrCaption if "n_time" in dims else BMHrlAgent)
+           else DetrCaption if "n_time" in dims
+           else MultimodalProposalGenerator if "num_anchors" in dims
+           else BMHrlAgent)
     return random_module_params(cls(**dims, device="meta"), seed)
 
 
@@ -103,11 +108,13 @@ def random_module_params(model: nn.Module, seed: int = 0,
     init values); biases, norm parameters and the fusion gate constant get
     small random values so that a loader that drops them shows, or, with
     ``flax_init``, the flax initialisers' values (zero biases and gate
-    constant, unit norm scales; the DETR convolutions' biases uniform in
+    constant, unit norm scales; the biases of a ``ConvSame`` with
+    ``torch_bias_init`` (the DETR's projections) uniform in
     ±1/sqrt(fan-in), torch's, as the JAX package sets them): the start of
     a training run."""
     rng = np.random.RandomState(seed)
-    convs = {n for n, m in model.named_modules() if isinstance(m, nn.Conv1d)}
+    convs = {n for n, m in model.named_modules()
+             if getattr(m, "torch_bias_init", False)}
     tree: Dict = {}
     for path, p, transposed in _flax_paths(model):
         shape = tuple(p.shape)[::-1] if transposed else tuple(p.shape)

@@ -116,7 +116,28 @@ Phases, each of which raises at its first failure:
 10. leftovers: ``train_critic`` on the written corpus (BCE falls; its
    ``critic.cp`` installed gives the trained module's logits through the
    cell kernels, 1e-4) and one ``run_training --mode verbose`` pass;
-11. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
+11. proposals: the event-proposal generator. A small f32 model (2 heads
+   of d=128: the CUDA-core flash route; Sv 300, Sa 800, B 4, one video
+   without features) on card and CPU with the same weights and draws:
+   predictions (segments relative to their scale) and losses within 1e-5,
+   one train_step (dropout on, the clip triggered) to parameters within
+   1e-5, under PyTorch's default cuDNN TF32 setting; flash at the
+   proposal encoder's four sites (B=8, 4 heads of d=256, 300 and 800 rows,
+   bf16) against its plain version (2e-2, a fully-masked row = mean(V)),
+   timed with the plain version, SDPA, the bound and the backward
+   recompute against SDPA forward + backward; the generator at the CLIs'
+   widths (bf16, B=8 at the pads): every encoder parameter's gradient
+   through flash, the training main run (10 steps on one batch, launches
+   zeroed just before and read just after: 8 ``flash_attention_tc`` a
+   forward and nothing else; the loss falls), ms/step, the step's split
+   (the f32 heads' share of the forward), FLOPs, the device's idle share;
+   ``train_proposals`` on 24 written videos (2 epochs) and ``--emit_only``
+   on its checkpoint (the best epoch's proposals again); ``dense_caption``
+   over 16 of them with the flagship captioner from a reference .pt: the
+   slice's main path (launches zeroed just before and read just after:
+   every tensor-core kernel and both cells, no CUDA-core route), equal to
+   the direct predict + postprocess + ``CaptionServer.caption``;
+12. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
    one B=16 warmstart step under ``torch.profiler`` (last: a profiled
    process launches more slowly).
 
@@ -3044,6 +3065,562 @@ def phase_leftovers(K):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# the proposal generator: a small f32 model for the card-vs-CPU check, and
+# the CLIs' widths (MultimodalProposalGenerator's defaults) for the rest
+PROP_SMALL = dict(d_vid=256, d_aud=128, d_model=256, d_model_aud=128,
+                  d_ff_v=256, d_ff_a=128, att_heads=2, att_layers=2,
+                  num_anchors=10)
+PROP_ANCHORS = np.asarray([2.0, 4.5, 8.0, 12.5, 18.0, 25.0, 34.0, 46.0,
+                           62.0, 85.0], np.float32)
+
+
+def proposal_batch(B, Sv, Sa, d_v, d_a, seed, missing_row):
+    """A batch shaped as ``ProposalDataset.make_batch``'s: 30-180 s videos,
+    features over ragged original lengths, 1-4 events a video with their
+    YOLO targets (``models.proposal.yolo_targets``); ``missing_row`` is a
+    video without feature files (one zero row, original length 1)."""
+    from bmhrl_tpu_torch.models.proposal import yolo_targets
+
+    rng = np.random.RandomState(seed)
+    dur = rng.uniform(30, 180, B).astype(np.float32)
+    olv = rng.randint(Sv // 3, Sv + 1, B).astype(np.int32)
+    ola = rng.randint(Sa // 3, Sa + 1, B).astype(np.int32)
+    olv[missing_row] = ola[missing_row] = 1
+    V = rng.rand(B, Sv, d_v).astype(np.float32)
+    A = rng.rand(B, Sa, d_a).astype(np.float32)
+    V[missing_row] = A[missing_row] = 0.0
+    for b in range(B):
+        V[b, olv[b]:] = 0.0
+        A[b, ola[b]:] = 0.0
+    gts = [np.sort(rng.uniform(0, d, (rng.randint(1, 5), 2)), 1)
+           for d in dur]
+
+    def targets(ol, S):
+        per = [yolo_targets(g, float(d), int(o), S, PROP_ANCHORS)
+               for g, d, o in zip(gts, dur, ol)]
+        return {k: np.stack([p[k] for p in per]) for k in per[0]}
+
+    return {"feature_stacks": {"V": V, "A": A},
+            "masks": {"V_mask": (np.arange(Sv)[None] < olv[:, None])[:, None],
+                      "A_mask": (np.arange(Sa)[None] < ola[:, None])[:, None]},
+            "targets": {"video": targets(olv, Sv), "audio": targets(ola, Sa),
+                        "anchors_v": PROP_ANCHORS, "anchors_a": PROP_ANCHORS,
+                        "duration": dur, "orig_len_video": olv,
+                        "orig_len_audio": ola}}
+
+
+def segments_err(got, want):
+    """Largest error of (B, N, 3) predictions: confidences absolute, a
+    segment's start and end relative to its scale (the larger of |start|
+    and |end|, at least 1 s: both endpoints are centre -+ length / 2)."""
+    scale = want[..., :2].abs().amax(-1, keepdim=True).clamp_min(1.0)
+    return max(float((got[..., 2] - want[..., 2]).abs().max()),
+               float(((got[..., :2] - want[..., :2]).abs() / scale).max()))
+
+
+def small_proposals_card_vs_cpu():
+    """A small f32 proposal generator (2 heads of d=128: the CUDA-core
+    flash route) on the card and on the CPU with the same weights: the
+    predictions and losses within 1e-5 (segments relative to their
+    scale), then one train_step with dropout from the same draws and the
+    clip triggered, the updated parameters within 1e-5. cuDNN's TF32 stays
+    at PyTorch's default: the heads' convolutions turn it off."""
+    import torch
+
+    from bmhrl_tpu_torch.models.proposal import MultimodalProposalGenerator
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.train.steps import _grads
+    from bmhrl_tpu_torch.train.steps_proposal import ProposalStepFactory
+    from bmhrl_tpu_torch.weights import (load_jax_params,
+                                         random_jax_layout_params)
+
+    HostDraws = host_draws_class()
+    batch = proposal_batch(4, 300, 800, 256, 128, seed=31, missing_row=2)
+    tree = random_jax_layout_params(dict(PROP_SMALL, dout_p=0.1), seed=7)
+    clip = 1e-3
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = load_jax_params(MultimodalProposalGenerator(
+            **PROP_SMALL, dout_p=0.1, dtype=torch.float32, device=device),
+            tree)
+        sf = ProposalStepFactory(model, lr=5e-5, grad_clip=clip,
+                                 device=device)
+        state = sf.init_state()
+        _cuda.reset_launches()
+        preds = sf.predict(state, batch).cpu()
+        launches = dict(_cuda.LAUNCHES)
+        b = sf.to_device(batch)
+        with torch.no_grad():
+            _, loss, la, lv = model(b["feature_stacks"], b["targets"],
+                                    b["masks"])
+        if device == "cpu":
+            _, tl, _, _ = model(b["feature_stacks"], b["targets"],
+                                b["masks"], HostDraws(5, device))
+            gnorm = float(torch.sqrt(sum(
+                g.square().sum() for g in _grads(tl, sf.params).values())))
+        state, m = sf.train_step(state, batch, HostDraws(5, device))
+        out[device] = dict(
+            preds=preds, launches=launches,
+            losses=np.array([float(loss)] + [float(d[k]) for d in (la, lv)
+                                             for k in sorted(d)]
+                            + [float(m[k]) for k in sorted(m)]),
+            params={n: p.detach().cpu() for n, p in model.named_parameters()})
+    card, cpu = out["cuda"], out["cpu"]
+    pred_err = segments_err(card["preds"], cpu["preds"])
+    loss_err = float(np.max(np.abs(card["losses"] - cpu["losses"])
+                            / np.abs(cpu["losses"])))
+    param_err = max(float((card["params"][n] - p).abs().max())
+                    for n, p in cpu["params"].items())
+    emit({"phase": "proposals", "check": "small f32 card vs CPU",
+          "B": 4, "Sv": 300, "Sa": 800, "dims": PROP_SMALL,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "pred_err": pred_err, "loss_rel_err": loss_err,
+          "grad_norm": gnorm, "grad_clip": clip,
+          "param_max_abs_err": param_err, "tol": 1e-5,
+          "launches_card_forward": card["launches"]})
+    if not (pred_err <= 1e-5 and loss_err <= 1e-5 and param_err <= 1e-5):
+        raise AssertionError("the small proposal generator disagrees "
+                             "between card and CPU")
+    if gnorm <= clip:
+        raise AssertionError(f"the clip did not trigger: norm {gnorm}")
+    if card["launches"]["flash_attention_simt"] != 8 or \
+            card["launches"]["flash_attention_tc"]:
+        raise AssertionError(f"small f32 forward launches "
+                             f"{card['launches']}")
+
+
+def proposal_flash_times(K):
+    """Flash attention at the proposal encoder's four sites of one layer
+    (B=8, 4 heads of d=256, bf16; V<-V 300x300, A<-A 800x800, V<-A
+    300x800, A<-V 800x300), ragged key-pad masks and one fully-masked row
+    (= mean(V)): kernel vs plain version within 2e-2; kernel, plain and
+    ``scaled_dot_product_attention`` times with the bound, and the
+    backward (the plain recompute) against SDPA's forward + backward.
+    Sums go on the tensor-core flash record (``proposal_layer_B8``)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from bmhrl_tpu_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, H, d, tol = 8, 4, 256, 2e-2
+    HD = H * d
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 bwd_recompute_ms=0.0, fwd_bwd_eager_ms=0.0,
+                 sdpa_fwd_bwd_eager_ms=0.0, fwd_bwd_bound_ms=0.0,
+                 max_abs_err=0.0)
+    bytes_ms = ops_ms = 0.0
+    for site, Sq, Sk in (("V<-V", 300, 300), ("A<-A", 800, 800),
+                         ("V<-A", 300, 800), ("A<-V", 800, 300)):
+        def rnd(S, scale=1.0):
+            return (torch.randn(B, S, HD, generator=g, device=dev)
+                    * scale).to(torch.bfloat16)
+        q, k, v, go = rnd(Sq, 0.3), rnd(Sk), rnd(Sk), rnd(Sq)
+        lens = torch.randint(Sk // 3, Sk + 1, (B,), generator=g, device=dev)
+        mask = torch.arange(Sk, device=dev)[None] < lens[:, None]
+        mask[3] = False
+        if att.flash_route(q.dtype, d) != "tc":
+            raise AssertionError("the proposal sites left the tensor cores")
+        got = att.flash_attention_bsd(q, k, v, mask, H)
+        want = att.flash_attention_bsd_plain(q, k, v, mask, H)
+        torch.cuda.synchronize()
+        e = check_close(f"flash proposal {site}", got, want, tol)
+        mean_v = v[3].float().mean(0).expand_as(got[3])
+        e = max(e, check_close(f"flash proposal {site} masked row = mean(V)",
+                               got[3], mean_v, tol))
+        K["flash_tc"].err(e)
+        ms = time_ms(lambda: att.flash_attention_bsd(q, k, v, mask, H))
+        pms = time_ms(lambda: att.flash_attention_bsd_plain(q, k, v, mask,
+                                                            H), iters=5)
+        bwd = time_ms(lambda: att.flash_attention_bsd_bwd(q, k, v, mask, go,
+                                                          H), iters=5)
+        qh, kh, vh = (t.view(B, -1, H, d).transpose(1, 2) for t in (q, k, v))
+        m4 = mask[:, None, None, :]
+        lms = time_ms(lambda: Fn.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=m4))
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def port_fb():
+            o = att.flash_attention_bsd(qg, kg, vg, mask, H)
+            return torch.autograd.grad(o, (qg, kg, vg), go)
+
+        qr, kr, vr = (t.detach().requires_grad_() for t in (qh, kh, vh))
+        goh = go.view(B, Sq, H, d).transpose(1, 2)
+
+        def sdpa_fb():
+            o = Fn.scaled_dot_product_attention(qr, kr, vr, attn_mask=m4)
+            return torch.autograd.grad(o, (qr, kr, vr), goh)
+
+        fb = eager_ms(port_fb, iters=5)
+        lfb = eager_ms(sdpa_fb, iters=5)
+        nbytes = (2 * B * Sq * HD + 2 * B * Sk * HD) * 2 + B * Sk * 4
+        ops = 4.0 * B * H * Sq * Sk * d
+        bms, by = bound_ms(nbytes, ops, "bf16")
+        fbb, _ = bound_ms((3 * B * Sq * HD + 3 * B * Sk * HD) * 2
+                          + B * Sk * 4, 3 * ops, "bf16")
+        emit({"kernel": "flash_attention_tc", "case": f"proposal {site}",
+              "B": B, "Sq": Sq, "Sk": Sk, "H": H, "d": d, "dtype": "bf16",
+              "max_abs_err": e, "tol": tol, "kernel_ms": ms,
+              "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+              "bound_by": by, "bwd_recompute_ms": bwd,
+              "fwd_bwd_eager_ms": fb, "sdpa_fwd_bwd_eager_ms": lfb,
+              "fwd_bwd_bound_ms": fbb})
+        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                         ("bwd_recompute_ms", bwd), ("fwd_bwd_eager_ms", fb),
+                         ("sdpa_fwd_bwd_eager_ms", lfb),
+                         ("fwd_bwd_bound_ms", fbb)):
+            total[key] += val
+        total["max_abs_err"] = max(total["max_abs_err"], e)
+        bytes_ms += nbytes / PEAK_BYTES * 1e3
+        ops_ms += ops / PEAK_OPS["bf16"] * 1e3
+        del q, k, v, go, qg, kg, vg, qr, kr, vr
+    total["bound_ms"] = max(bytes_ms, ops_ms)
+    total["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    emit({"kernel": "flash_attention_tc", "case": "proposal: the four "
+          "sites of one encoder layer, B=8", **total})
+    K["flash_tc"].rec["proposal_layer_B8"] = total
+    torch.cuda.empty_cache()
+
+
+def proposal_step_split(sf, state, batch, seed):
+    """Device-timeline ms of one train_step's forward (and of the f32
+    heads inside it), backward and optimizer update, from CUDA events."""
+    import torch
+
+    from bmhrl_tpu_torch.train import steps_proposal as sp
+
+    names = ("start", "fwd0", "fwd1", "bwd0", "bwd1", "opt0", "opt1", "end",
+             "hv0", "hv1", "ha0", "ha1")
+    ev = {k: torch.cuda.Event(enable_timing=True) for k in names}
+    grads, update = sp._grads, sf.optim.update
+
+    def timed(a, b, fn):
+        def run(*args, **kw):
+            ev[a].record()
+            res = fn(*args, **kw)
+            ev[b].record()
+            return res
+        return run
+
+    m = sf.model
+    hooks = []
+    for mod, a, b in ((m, "fwd0", "fwd1"), (m.head_V, "hv0", "hv1"),
+                      (m.head_A, "ha0", "ha1")):
+        hooks += [mod.register_forward_pre_hook(
+                      lambda *x, a=a: ev[a].record()),
+                  mod.register_forward_hook(lambda *x, b=b: ev[b].record())]
+    try:
+        with mock.patch.object(sp, "_grads", timed("bwd0", "bwd1", grads)), \
+                mock.patch.object(sf.optim, "update",
+                                  timed("opt0", "opt1", update)):
+            ev["start"].record()
+            state, _ = sf.train_step(state, batch, sf.draws(seed))
+            ev["end"].record()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return state, {"forward_ms": ev["fwd0"].elapsed_time(ev["fwd1"]),
+                   "heads_forward_ms": ev["hv0"].elapsed_time(ev["hv1"])
+                   + ev["ha0"].elapsed_time(ev["ha1"]),
+                   "backward_ms": ev["bwd0"].elapsed_time(ev["bwd1"]),
+                   "optimizer_ms": ev["opt0"].elapsed_time(ev["opt1"]),
+                   "step_ms": ev["start"].elapsed_time(ev["end"])}
+
+
+def proposal_forward_flops(model, batch):
+    """Matmul and convolution FLOPs of one deterministic forward (counted
+    by ``torch.utils.flop_counter`` over the kernels' plain versions):
+    (all, the f32 heads' share)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    heads = []
+    with torch.no_grad(), plain_kernels(), \
+            FlopCounterMode(display=False) as counter:
+        hooks = []
+        for head in (model.head_V, model.head_A):
+            hooks += [head.register_forward_pre_hook(
+                          lambda *a: heads.append(-counter.get_total_flops())),
+                      head.register_forward_hook(
+                          lambda *a: heads.append(counter.get_total_flops()))]
+        try:
+            model(batch["feature_stacks"], batch["targets"], batch["masks"])
+        finally:
+            for h in hooks:
+                h.remove()
+    return counter.get_total_flops(), sum(heads)
+
+
+def proposal_flagship_train(K):
+    """The proposal generator at the CLIs' widths (d_vid 1024, d_aud 128,
+    d_model 1024 / 128, d_ff 1024 / 512, 4 heads, 2 layers, 10 anchors,
+    bf16, dropout 0.1; random weights from seed 0) on a B=8 batch at the
+    pads (Sv 300, Sa 800): every encoder parameter's gradient through
+    flash, the training main run (10 steps on one batch, launches counted:
+    8 tensor-core flash launches a forward, nothing else of csrc/; the
+    loss falls), ms/step, the step's split, FLOPs and the device's idle
+    share of a step, and the predict ms at B=8."""
+    import torch
+
+    from bmhrl_tpu_torch.models.proposal import MultimodalProposalGenerator
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.train.steps_proposal import ProposalStepFactory
+    from bmhrl_tpu_torch.weights import load_jax_params, random_module_params
+
+    model = MultimodalProposalGenerator(device="cuda")
+    load_jax_params(model, random_module_params(model, 0, flax_init=True))
+    sf = ProposalStepFactory(model, device="cuda")
+    batch = sf.to_device(proposal_batch(8, 300, 800, 1024, 128, seed=41,
+                                        missing_row=5))
+    b = batch
+    _, loss, _, _ = model(b["feature_stacks"], b["targets"], b["masks"],
+                          sf.draws(0))
+    enc = {n: p for n, p in model.named_parameters()
+           if n.startswith("encoder.")}
+    grads = torch.autograd.grad(loss, list(enc.values()))
+    zero = [n for n, gr in zip(enc, grads) if not float(gr.abs().sum()) > 0]
+    if zero:
+        raise AssertionError(f"encoder parameters without gradient: {zero}")
+    del loss, grads
+    state = sf.init_state()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    metrics = []
+    for s in range(10):
+        state, m = sf.train_step(state, batch, sf.draws(1 + s))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    losses = [float(m["loss"]) for m in metrics]
+    for name, n in launches.items():
+        K[name].rec["launches_proposal_train"] = n
+    n_params = sum(p.numel() for p in model.parameters())
+    emit({"phase": "proposals", "train_main_run": "10 train_steps on one "
+          "batch, B=8, Sv 300, Sa 800", "launches": launches,
+          "losses": losses, "params": n_params,
+          "encoder_params_with_grad": len(enc)})
+    if launches["flash_attention_tc"] != 8 * 10 or any(
+            v for n, v in launches.items() if n != "flash_attention_tc"):
+        raise AssertionError(f"proposal training launches {launches}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"proposal training loss did not fall: "
+                             f"{losses}")
+
+    def step():
+        nonlocal state
+        state, _ = sf.train_step(state, batch, sf.draws(7))
+
+    ms, samples = step_ms(step)
+    state, split = proposal_step_split(sf, state, batch, 8)
+    flops, head_flops = proposal_forward_flops(model, batch)
+    pms, psamples = step_ms(lambda: sf.predict(state, batch))
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("proposal_step"):
+            step()
+        torch.cuda.synchronize()
+    (_, wall, busy, n), = span_busy(prof, "proposal_step")
+    emit({"phase": "proposals", "what": "train step", "B": 8, "Sv": 300,
+          "Sa": 800, "ms_per_step": ms, "samples": samples, "split": split,
+          "heads_share_of_forward": split["heads_forward_ms"]
+          / split["forward_ms"],
+          "forward_gflop": flops / 1e9, "heads_forward_gflop_f32":
+          head_flops / 1e9, "profiled_wall_ms": wall,
+          "device_busy_ms": busy,
+          "device_idle_share": (1.0 - busy / wall) if busy else None,
+          "device_launches": n, "predict_ms_B8": pms,
+          "predict_samples": psamples,
+          "note": None if busy else "not measured: no device time traced"})
+    del sf, state, model, batch
+    torch.cuda.empty_cache()
+
+
+def write_proposal_corpus(root, n=24, seed=0):
+    """``n`` videos of 30-180 s as .npy files (I3D rgb/flow at one row per
+    0.64 s, VGGish at one per 0.96 s: within the pads 300 and 800), the
+    twelfth without feature files, 1-4 events each in a meta TSV. Returns
+    (meta path, video dir, audio dir, {vid: duration})."""
+    rng = np.random.RandomState(seed)
+    vdir, adir = os.path.join(root, "i3d"), os.path.join(root, "vggish")
+    os.makedirs(vdir)
+    os.makedirs(adir)
+    meta = os.path.join(root, "props.csv")
+    durations = {}
+    with open(meta, "w") as f:
+        f.write("video_id\tcaption\tstart\tend\tduration\tphase\tidx\n")
+        idx = 0
+        for i in range(n):
+            vid = f"p{i:02d}"
+            dur = float(np.round(rng.uniform(30, 180), 2))
+            durations[vid] = dur
+            if i != 11:
+                Tv, Ta = int(dur / 0.64), int(dur / 0.96)
+                for kind in ("rgb", "flow"):
+                    np.save(os.path.join(vdir, f"{vid}_{kind}.npy"),
+                            rng.rand(Tv, 1024).astype(np.float32))
+                np.save(os.path.join(adir, f"{vid}.npy"),
+                        rng.rand(Ta, 128).astype(np.float32))
+            for _ in range(rng.randint(1, 5)):
+                s = float(np.round(rng.uniform(0, 0.8 * dur), 2))
+                e = float(np.round(min(dur, s + rng.uniform(2, dur / 2)), 2))
+                f.write(f"{vid}\tan event\t{s}\t{e}\t{dur}\ttrain\t{idx}\n")
+                idx += 1
+    return meta, vdir, adir, durations
+
+
+def proposal_clis(K, serve_model):
+    """``cli.train_proposals`` at the CLIs' widths on a written corpus (2
+    epochs of at most 4 steps, launches counted), ``--emit_only`` on its
+    checkpoint reproducing the best epoch's proposals; then
+    ``cli.dense_caption`` over 16 of the videos with that checkpoint and
+    the flagship captioner from a reference .pt (seed-0 weights,
+    vocabulary 10172): the slice's main path (launches zeroed just before
+    and read just after: every tensor-core kernel and both cells, no
+    CUDA-core route), equal to a direct ``ProposalStepFactory.predict`` +
+    ``postprocess`` + ``CaptionServer.caption`` with the serve phase's
+    model (the same weights)."""
+    import torch
+
+    from bmhrl_tpu_torch.cli import dense_caption, train_proposals
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.proposal import ProposalDataset
+    from bmhrl_tpu_torch.data.vocab import build_vocab_from_tsv
+    from bmhrl_tpu_torch.models.proposal import MultimodalProposalGenerator
+    from bmhrl_tpu_torch.serve import CaptionServer, ClipRequest
+    from bmhrl_tpu_torch.train.steps_proposal import ProposalStepFactory
+    from bmhrl_tpu_torch.utils.checkpoint import (export_torch_bmhrl,
+                                                  load_proposal_checkpoint)
+    from bmhrl_tpu_torch.weights import random_jax_layout_params
+
+    with tempfile.TemporaryDirectory() as root:
+        meta, vdir, adir, durations = write_proposal_corpus(root)
+        log_dir = os.path.join(root, "props_log")
+        base = ["--train_meta_path", meta, "--val_meta_path", meta,
+                "--video_features_path", vdir, "--audio_features_path", adir,
+                "--device", "cuda"]
+        t0 = time.perf_counter()
+        f1, lines, launches = run_cli(train_proposals.main, base + [
+            "--log_dir", log_dir, "--epochs", "2",
+            "--max_steps_per_epoch", "4"])
+        train_s = time.perf_counter() - t0
+        for name, n in launches.items():
+            K[name].rec["launches_train_proposals_cli"] = n
+        emit({"phase": "proposals", "cli": "train_proposals",
+              "wall_s": train_s, "best_val_F1": f1, "printed": lines,
+              "launches": launches})
+        if launches["flash_attention_tc"] <= 0 or any(
+                v for n, v in launches.items() if n != "flash_attention_tc"):
+            raise AssertionError(f"train_proposals launches {launches}")
+        with open(os.path.join(log_dir, "learned_proposals.json")) as f:
+            best = json.load(f)
+        emit_dir = os.path.join(root, "emit")
+        _, lines, _ = run_cli(train_proposals.main, base + [
+            "--log_dir", emit_dir, "--emit_only", "--checkpoint_dir",
+            log_dir])
+        with open(os.path.join(emit_dir, "learned_proposals.json")) as f:
+            again = json.load(f)
+        emit({"phase": "proposals", "cli": "train_proposals --emit_only",
+              "equal_to_best_epoch": again == best, "printed": lines[-1:],
+              "segments": sum(len(v["timestamps"]) for v in best.values())})
+        if again != best or not best:
+            raise AssertionError("--emit_only did not reproduce the best "
+                                 "epoch's proposals")
+
+        # dense captioning over 16 videos (the one without features
+        # included), the flagship captioner from a reference .pt
+        vids = sorted(durations)[:16]
+        dj = os.path.join(root, "videos.json")
+        with open(dj, "w") as f:
+            json.dump({v: durations[v] for v in vids}, f)
+        tsv = os.path.join(root, "train.csv")
+        write_train_tsv(tsv, VOC - 4)
+        vocab = build_vocab_from_tsv(tsv)
+        pt = os.path.join(root, "bm_hrl_agent.pt")
+        export_torch_bmhrl(random_jax_layout_params(
+            Config().agent_kwargs(VOC), 0), pt)
+        out = os.path.join(root, "dense.json")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got, lines, launches = run_cli(dense_caption.main, [
+            "--durations_json", dj, "--video_features_path", vdir,
+            "--audio_features_path", adir, "--proposal_checkpoint", log_dir,
+            "--train_meta_path", tsv, "--torch_checkpoint", pt,
+            "--out", out, "--device", "cuda"])
+        cli_s = time.perf_counter() - t0
+        summary = json.loads(lines[-1])
+        with open(out) as f:
+            written = json.load(f)
+        for name, n in launches.items():
+            K[name].rec["launches_dense_caption"] = n
+
+        # the same two stages called directly
+        anchors = np.load(os.path.join(log_dir, "anchors.npy"))
+        vmeta = os.path.join(root, "videos.csv")
+        with open(vmeta, "w") as f:
+            f.write("video_id\tcaption\tstart\tend\tduration\tphase\tidx\n")
+            for i, v in enumerate(vids):
+                f.write(f"{v}\t-\t0.0\t{durations[v]}\t{durations[v]}\t"
+                        f"infer\t{i}\n")
+        ds = ProposalDataset(vmeta, vdir, adir)
+        ds.anchors = anchors
+        pmodel = MultimodalProposalGenerator(num_anchors=len(anchors),
+                                             device="cuda")
+        sf = ProposalStepFactory(pmodel, device="cuda")
+        state = load_proposal_checkpoint(log_dir, pmodel, sf.init_state())
+        reqs, confs = [], []
+        for batch in ds.batches(0, 8, shuffle=False):
+            per_vid = train_proposals.postprocess(
+                sf.predict(state, batch).cpu().numpy(), batch["durations"],
+                10, 0.5)
+            for vid, rows in zip(batch["video_ids"], per_vid):
+                for s, e, conf in rows:
+                    reqs.append(ClipRequest(vid, float(s), float(e),
+                                            durations[vid]))
+                    confs.append(float(conf))
+        del sf, state, pmodel
+        cfg = Config().replace(video_features_path=vdir,
+                               audio_features_path=adir)
+        want, _ = CaptionServer(cfg, serve_model, vocab.itos,
+                                device="cuda").caption(reqs, batch_size=256)
+        seen = {}
+        for r, conf in zip(reqs, confs):
+            i = seen.get(r.video_id, 0)
+            want["results"][r.video_id][i]["proposal_score"] = conf
+            seen[r.video_id] = i + 1
+        sents = [s["sentence"] for segs in written["results"].values()
+                 for s in segs]
+        emit({"phase": "proposals", "cli": "dense_caption",
+              "main_path": True, "videos": len(vids), "wall_s": cli_s,
+              "summary": summary, "launches": launches,
+              "answered": len(sents), "requests_direct": len(reqs),
+              "equal_to_direct_path": written == want == got,
+              "example": [s for segs in written["results"].values()
+                          for s in segs][:2]})
+        if written != want or got != written or len(sents) != len(reqs) \
+                or not all(sents) or set(written["results"]) != set(vids):
+            raise AssertionError("dense_caption differs from the direct "
+                                 "predict + postprocess + CaptionServer")
+        check_serve_launches("dense_caption", launches)
+
+
+def phase_proposals(K, serve_model):
+    """The proposal path: small f32 card vs CPU, flash at its shapes, the
+    full-width training main run and timings, the two CLIs (dense_caption
+    is the slice's main path)."""
+    small_proposals_card_vs_cpu()
+    proposal_flash_times(K)
+    proposal_flagship_train(K)
+    proposal_clis(K, serve_model)
+
+
 def span_busy(prof, prefix):
     """Per record_function span whose name starts with ``prefix``: its wall
     ms and the device ms of the kernels that ran inside it."""
@@ -3202,6 +3779,7 @@ def main() -> int:
                lambda: made.update(train_loop=phase_train_loop(K))),
               ("detr", lambda: phase_detr(K, made["serve"])),
               ("leftovers", lambda: phase_leftovers(K)),
+              ("proposals", lambda: phase_proposals(K, made["serve"])),
               # the profiler runs last: once it has traced, the host
               # launches more slowly
               ("profile", lambda: (profile_decode(made["serve"]),
