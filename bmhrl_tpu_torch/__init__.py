@@ -12,7 +12,9 @@ and dense captioning's first stage: the event-proposal generator
 (``models.proposal.MultimodalProposalGenerator``), trained by
 ``cli.train_proposals`` (``train.steps_proposal.ProposalStepFactory``)
 and served with the captioner by ``cli.dense_caption`` (propose segments,
-then caption them).
+then caption them). ``serve_export`` exports a captioner's decode as
+``torch.export`` programs (a bundle) that ``ExportedCaptionServer`` serves
+without the model code.
 
 The JAX package ``bmhrl_tpu`` is the reference and is never imported here.
 Entry points take a ``device`` argument: ``"cuda"`` by default (an error

@@ -14,9 +14,15 @@ a ``run_training`` run's ``.../checkpoints/E_{n}``; every mode) or from a
 reference-layout ``.pt`` (``--torch_checkpoint``, BMHRL; the JAX package
 writes one from a trained tree with its ``export_torch_bmhrl``); without
 either the model has random weights. An orbax directory (the JAX
-package's checkpoints), ``--mesh`` > 1 and the AOT bundle flags exit with
-a message. Prints one JSON stats line (clips/s, latency percentiles, shape
-count) and returns the stats.
+package's checkpoints) and ``--mesh`` > 1 exit with a message.
+
+``--export_bundle DIR`` exports, instead of serving, the decode programs
+(``serve_export``) for exactly the shapes this request set plans at
+``--batch_size``, greedy or with ``--beam_width`` / ``--length_penalty``,
+on ``--device``; ``--from_bundle DIR`` serves such a bundle on
+``--device`` (the platform it was exported on) without building a model.
+Prints one JSON stats line (clips/s, latency percentiles, shape count) and
+returns the stats (the manifest after an export).
 """
 from __future__ import annotations
 
@@ -25,8 +31,6 @@ import json
 
 NOT_PORTED = {
     "mesh": "--mesh > 1 is not ported yet: the port serves on one card",
-    "export_bundle": "--export_bundle is not ported yet",
-    "from_bundle": "--from_bundle is not ported yet",
 }
 
 
@@ -38,7 +42,7 @@ def refuse_unported(args) -> None:
 
     for flag, msg in NOT_PORTED.items():
         value = getattr(args, flag, None)
-        if value is not None and (flag != "mesh" or value > 1):
+        if value is not None and value > 1:
             raise SystemExit(msg)
     if getattr(args, "checkpoint_dir", None):
         if args.torch_checkpoint:
@@ -116,9 +120,12 @@ def main(argv=None):
                    help="JSON dict of extra Config overrides "
                         '(e.g. \'{"d_model": 64}\' for ablation models)')
     p.add_argument("--export_bundle", default=None,
-                   help="AOT export of the decode (not ported yet)")
+                   help="instead of serving, export the decode programs for "
+                        "exactly the shapes this request set plans to, "
+                        "into this bundle dir (see serve_export)")
     p.add_argument("--from_bundle", default=None,
-                   help="serve from an AOT bundle (not ported yet)")
+                   help="serve from a bundle dir exported on this device "
+                        "(no model build; the model flags are ignored)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernels) or cpu (their "
                         "plain versions)")
@@ -137,6 +144,18 @@ def main(argv=None):
             if args.proposals else read_meta_tsv(args.meta))
     print(f"{len(reqs)} clip requests")
 
+    if args.from_bundle:
+        from bmhrl_tpu_torch.serve_export import (BundleError,
+                                                  ExportedCaptionServer)
+
+        try:
+            server = ExportedCaptionServer(
+                args.from_bundle, args.video_features_path,
+                args.audio_features_path, device=args.device)
+        except BundleError as e:
+            raise SystemExit(str(e))
+        return _serve(server, reqs, args)
+
     overrides = json.loads(args.config_json) if args.config_json else {}
     cfg = Config(
         mode=args.mode, train_meta_path=args.train_meta_path,
@@ -149,12 +168,29 @@ def main(argv=None):
                                  cfg.glove_path, cfg.d_model_caps)
     model = load_captioner(cfg, len(vocab), args.torch_checkpoint,
                            args.device, args.checkpoint_dir)
+    if args.export_bundle:
+        from bmhrl_tpu_torch.serve import plan_batches
+        from bmhrl_tpu_torch.serve_export import export_decode_bundle
+
+        plan = plan_batches(reqs, cfg, args.batch_size)
+        shapes = sorted({(args.batch_size, vb, ab) for _, vb, ab in plan})
+        manifest = export_decode_bundle(
+            cfg, model, vocab.itos, shapes, args.export_bundle,
+            beam_width=args.beam_width, length_penalty=args.length_penalty)
+        print(json.dumps({"exported": manifest["shapes"],
+                          "bundle": args.export_bundle}))
+        return manifest
     server = CaptionServer(cfg, model, vocab.itos, device=args.device,
                            beam_width=args.beam_width,
                            length_penalty=args.length_penalty,
                            sample=args.sample, temperature=args.temperature,
                            top_k=args.top_k, top_p=args.top_p,
                            sample_seed=args.sample_seed)
+    return _serve(server, reqs, args)
+
+
+def _serve(server, reqs, args):
+    """Caption ``reqs``, write the submission, print the stats line."""
     predictions, stats = server.caption(reqs, batch_size=args.batch_size,
                                         io_threads=args.io_threads)
     with open(args.out, "w") as f:

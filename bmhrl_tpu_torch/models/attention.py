@@ -137,7 +137,7 @@ class MultiheadedAttention(nn.Module):
         return self.linear_d2Q(out.transpose(1, 2).reshape(B, Sq, self.d))
 
     def attend_step_shared(self, h: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, t: int,
+                           v_cache: torch.Tensor, t: torch.Tensor,
                            key_mask: Optional[torch.Tensor],
                            qkv: Tuple[torch.Tensor, torch.Tensor]
                            ) -> torch.Tensor:
@@ -145,30 +145,34 @@ class MultiheadedAttention(nn.Module):
         and value all come from ``h`` (B, 1, Dq), projected by the merged
         ``qkv`` = (W, b) in the compute dtype. The caches (B, H, L, d_k) hold
         the compute-dtype keys/values in f32 and are written IN PLACE at
-        position t. ``key_mask`` (B, L): validity of cached positions."""
+        position t, a 0-d int64 tensor on the caches' device. ``key_mask``
+        (B, L): validity of cached positions."""
         dt = self.dtype
         out = torch.nn.functional.linear(h.to(dt), qkv[0], qkv[1])
         q, k_t, v_t = (self._heads(y) for y in out.split(self.d, dim=-1))
-        k_cache[:, :, t] = k_t[:, :, 0].float()
-        v_cache[:, :, t] = v_t[:, :, 0].float()
+        pos = t.reshape(1)
+        k_cache.index_copy_(2, pos, k_t.float())
+        v_cache.index_copy_(2, pos, v_t.float())
         return self._cached_attend(q, k_cache, v_cache, t, key_mask)
 
     def attend_step_qkv(self, q_in: torch.Tensor, k_in: torch.Tensor,
                         v_in: torch.Tensor, k_cache: torch.Tensor,
-                        v_cache: torch.Tensor, t: int,
+                        v_cache: torch.Tensor, t: torch.Tensor,
                         key_mask: Optional[torch.Tensor]) -> torch.Tensor:
         """Single-position causal attention with a KV cache where query, key
         and value come from different inputs (B, 1, D): the DETR decoder
         projects Q and K from the position-encoded stream and V from the raw
-        one. Writes the projected key/value of position t into the caches
-        (B, H, L, d_k) IN PLACE (f32 storage of compute-dtype values) and
-        attends keys <= t that ``key_mask`` (B, L) allows."""
+        one. Writes the projected key/value of position t (a 0-d int64
+        tensor) into the caches (B, H, L, d_k) IN PLACE (f32 storage of
+        compute-dtype values) and attends keys <= t that ``key_mask`` (B,
+        L) allows."""
         q = self._heads(self.linear_Q2d(q_in))
-        k_cache[:, :, t] = self._heads(self.linear_K2d(k_in))[:, :, 0].float()
-        v_cache[:, :, t] = self._heads(self.linear_V2d(v_in))[:, :, 0].float()
+        pos = t.reshape(1)
+        k_cache.index_copy_(2, pos, self._heads(self.linear_K2d(k_in)).float())
+        v_cache.index_copy_(2, pos, self._heads(self.linear_V2d(v_in)).float())
         return self._cached_attend(q, k_cache, v_cache, t, key_mask)
 
-    def _cached_attend(self, q, k_cache, v_cache, t: int, key_mask):
+    def _cached_attend(self, q, k_cache, v_cache, t: torch.Tensor, key_mask):
         """The headed query (B, H, 1, d_k) against cache positions <= t (and
         ``key_mask``), then the output projection."""
         scores = (q.float() @ k_cache.transpose(-1, -2)) / math.sqrt(self.d_k)

@@ -266,10 +266,10 @@ class Worker(nn.Module):
         """Single-position head over the RAW worker-feature cache (B, L, Dc),
         with the goal attention's K/V/out projections folded (``fw``). The
         cache holds the compute-dtype features in f32 and is written IN
-        PLACE at position t."""
+        PLACE at position t (a 0-d int64 tensor)."""
         att = self.goal_attention
         dt = self.dtype
-        wf_cache[:, t] = wf_t[:, 0].float()
+        wf_cache.index_copy_(1, t.reshape(1), wf_t.float())
         q_eff = torch.einsum("bq,hqk->bhk", rounded(goal_t[:, 0], dt),
                              fw.w_qk) + fw.b_qk
         scores = torch.einsum("bhk,bsk->bhs", rounded(q_eff, dt),
@@ -426,18 +426,21 @@ class HierarchicalAgent(nn.Module):
             "hb": torch.zeros(B, dtype=torch.bool, device=dev),
         }
 
-    def decode_step_head(self, tok_t, t: int, crit_state, crit_w):
-        """Embed token t, advance the frozen critic one step, position-encode.
-        ``crit_w``: the critic's ``step_weights()``, packed once per decode.
-        Returns (c_t (B, 1, Dc) compute dtype, label_t (B,) int, state)."""
+    def decode_step_head(self, tok_t, t: torch.Tensor, crit_state, crit_w):
+        """Embed token t, advance the frozen critic one step, position-encode
+        (row t, a 0-d int64 tensor, of the table). ``crit_w``: the critic's
+        ``step_weights()``, packed once per decode. Returns (c_t (B, 1, Dc)
+        compute dtype, label_t (B,) int, state)."""
         emb_t = self.emb_C(tok_t[:, None])
         score_t, crit = self.critic.step(emb_t[:, 0], crit_state, crit_w)
         label_t = (torch.sigmoid(score_t[:, 0])
                    > self.critic_score_threshold).to(torch.int32)
-        c_t = (emb_t + self.pos_enc_C.table[t]).to(self.dtype)
+        pe = self.pos_enc_C.table.index_select(0, t.reshape(1))
+        c_t = (emb_t + pe).to(self.dtype)
         return c_t, label_t, crit
 
-    def decode_step_tail(self, wf_t, mf_t, label_t, hb, goal_cache, t: int,
+    def decode_step_tail(self, wf_t, mf_t, label_t, hb, goal_cache,
+                         t: torch.Tensor,
                          key_mask, goal_fw: FoldedWeights):
         """Goal emission + worker head. Returns ((B, V) log-probs, hb)."""
         hb = hb | label_t.bool()
@@ -449,33 +452,42 @@ class HierarchicalAgent(nn.Module):
     # the fast loop has every position's inputs once it reaches it
     has_fast_loop = True
 
-    def fast_setup(self, Va, Av, masks_src, B: int, L: int,
-                   beam_share: int = 1):
-        """The fast loop's state and per-token step (``train.decode``):
-        (caches0, valid0, step_fn) with ``step_fn(tok_t, t, caches, valid)
-        -> (log-probs, caches)``; the step writes the caches it is given in
-        place, so after a parent gather the next step writes into the
-        gathered tensors.
-
-        ``beam_share`` = W > 1: B counts ROWS (clips x beams, clip-major)
-        while Va, Av and masks_src stay at clip level; the W beams of a clip
-        fold into the query-group axis of ``folded_attend`` (one call per
-        memory and layer, G = 2 x heads x W)."""
+    def fast_state(self, Va, Av, masks_src, B: int, L: int):
+        """The fast loop's start: (caches0, valid0, inv). ``caches0`` the
+        per-row state of ``init_decode_caches`` for B rows; ``valid0`` (B,
+        L) bool, PAD-validity of consumed positions (<s> at 0 valid by
+        definition); ``inv`` the loop-invariant inputs of ``fast_step``:
+        the fusion layers' weights (merged QKV, folded projections), the
+        critic's cells packed once, the goal attention's folded weights and
+        the memories with their key masks (at clip level)."""
         caches0 = self.init_decode_caches(B, L)
-        N, H = self.att_layers, self.att_heads
-        layers = [[self.fusion_layer(s, i) for i in range(N)]
-                  for s in range(2)]
-        # loop-invariant weights (merged QKV, folded projections, packed
-        # critic cells), once per call
-        sw = [[layer.step_weights() for layer in stack] for stack in layers]
-        crit_w = self.critic.step_weights()  # the frozen cells, packed
-        goal_fw = self.worker.goal_attention.folded_weights()
-        # the bimodal agent's audio and video memories; the unimodal one's
-        mems = self.decode_memories(Va, Av, masks_src)
-        scale = 1.0 / math.sqrt(self.d_model // H)
-        # PAD-validity of consumed positions (<s> at 0 is valid by definition)
+        N = self.att_layers
+        inv = {"sw": [[self.fusion_layer(s, i).step_weights()
+                       for i in range(N)] for s in range(2)],
+               "crit_w": self.critic.step_weights(),
+               "goal_fw": self.worker.goal_attention.folded_weights(),
+               # the bimodal agent's audio and video memories; the
+               # unimodal one's
+               "mems": self.decode_memories(Va, Av, masks_src)}
         valid0 = torch.zeros(B, L, dtype=torch.bool, device=Va.device)
         valid0[:, 0] = True
+        return caches0, valid0, inv
+
+    def fast_step(self, tok_t, t: torch.Tensor, caches, valid, inv,
+                  beam_share: int = 1):
+        """One token of the fast loop: token ids tok_t (B,), position t (a
+        0-d int64 tensor), the caches (written IN PLACE: KV and goal
+        caches; the critic state and the boundary flag come back new),
+        ``valid`` and ``fast_state``'s ``inv``. Returns (log-probs (B, V),
+        caches).
+
+        ``beam_share`` = W > 1: B counts ROWS (clips x beams, clip-major)
+        while the memories stay at clip level; the W beams of a clip fold
+        into the query-group axis of ``folded_attend`` (one call per memory
+        and layer, G = 2 x heads x W)."""
+        N, H = self.att_layers, self.att_heads
+        scale = 1.0 / math.sqrt(self.d_model // H)
+        sw = inv["sw"]
 
         def attend(q_rows, mem, mask):
             # (rows, 2H, draw) -> (clips, W x 2H, draw): each clip's memory
@@ -486,28 +498,39 @@ class HierarchicalAgent(nn.Module):
                 mask, scale)
             return ctx.reshape(R, G, draw)
 
-        def step_fn(tok_t, t: int, caches, valid):
-            c_t, label_t, crit = self.decode_step_head(tok_t, t,
-                                                       caches["critic"],
-                                                       crit_w)
-            c = [c_t, c_t]
-            for i in range(N):
-                pre = [layers[s][i].step_mem_pre(c[s], t, caches["fus"][s][i],
-                                                 valid, sw[s][i])
-                       for s in range(2)]
-                # per memory, worker heads first, then manager heads:
-                # (rows, 2H, draw)
-                ctx = [attend(torch.cat([pre[0][1 + j], pre[1][1 + j]],
-                                        dim=1), mem, mask)
-                       for j, (mem, mask) in enumerate(mems)]
-                c = [layers[s][i].step_mem_post(
-                    pre[s][0], *(x[:, s * H:(s + 1) * H] for x in ctx),
-                    sw[s][i]) for s in range(2)]
-            logits, hb = self.decode_step_tail(
-                c[0], c[1], label_t, caches["hb"], caches["goal"], t, valid,
-                goal_fw)
-            caches = dict(caches, critic=crit, hb=hb)
-            return logits, caches
+        c_t, label_t, crit = self.decode_step_head(tok_t, t,
+                                                   caches["critic"],
+                                                   inv["crit_w"])
+        c = [c_t, c_t]
+        for i in range(N):
+            layers = [self.fusion_layer(s, i) for s in range(2)]
+            pre = [layers[s].step_mem_pre(c[s], t, caches["fus"][s][i], valid,
+                                          sw[s][i]) for s in range(2)]
+            # per memory, worker heads first, then manager heads:
+            # (rows, 2H, draw)
+            ctx = [attend(torch.cat([pre[0][1 + j], pre[1][1 + j]], dim=1),
+                          mem, mask)
+                   for j, (mem, mask) in enumerate(inv["mems"])]
+            c = [layers[s].step_mem_post(
+                pre[s][0], *(x[:, s * H:(s + 1) * H] for x in ctx),
+                sw[s][i]) for s in range(2)]
+        logits, hb = self.decode_step_tail(
+            c[0], c[1], label_t, caches["hb"], caches["goal"], t, valid,
+            inv["goal_fw"])
+        return logits, dict(caches, critic=crit, hb=hb)
+
+    def fast_setup(self, Va, Av, masks_src, B: int, L: int,
+                   beam_share: int = 1):
+        """The fast loop's state and per-token step (``train.decode``):
+        (caches0, valid0, step_fn) with ``step_fn(tok_t, t, caches, valid)
+        -> (log-probs, caches)`` (t a 0-d int64 tensor); the step writes the
+        caches it is given in place, so after a parent gather the next step
+        writes into the gathered tensors. ``fast_state`` and ``fast_step``
+        are its two halves (``serve_export`` exports each)."""
+        caches0, valid0, inv = self.fast_state(Va, Av, masks_src, B, L)
+
+        def step_fn(tok_t, t, caches, valid):
+            return self.fast_step(tok_t, t, caches, valid, inv, beam_share)
 
         return caches0, valid0, step_fn
 

@@ -174,11 +174,12 @@ class DetrDecoderLayer(nn.Module):
     def step_weights(self) -> Dict:
         return {"obj": self.detected_attention.folded_weights()}
 
-    def step(self, tgt_t, t: int, cache, memory_mask, kv_mem, obj_mem,
-             pe_row, key_mask, sw, beam_share: int = 1):
+    def step(self, tgt_t, t: torch.Tensor, cache, memory_mask, kv_mem,
+             obj_mem, pe_row, key_mask, sw, beam_share: int = 1):
         """One position of the caption path: tgt_t (R, 1, Dc) the raw
-        stream, pe_row (1, 1, Dc) row t of the positional table. Self-
-        attention from the KV cache (written in place), cross-attention on
+        stream, t a 0-d int64 tensor, pe_row (1, 1, Dc) row t of the
+        positional table. Self-attention from the KV cache (written in
+        place), cross-attention on
         the clip's projected memory ``kv_mem``, the object attention folded
         onto the raw objects ``obj_mem`` (B, 100, d_obj) with ``sw``'s
         weights (``step_weights``), the feed-forward. ``beam_share`` = W:
@@ -485,25 +486,39 @@ class DetrCaption(nn.Module):
         frontier."""
         return not self.pre_goal_attention
 
+    def fast_state(self, Va, Av, masks_src, B: int, L: int):
+        """The fast loop's start, as ``HierarchicalAgent.fast_state``:
+        (caches0, valid0, inv) with ``inv`` the memory's keys/values
+        projected once, the object attention's folded weights, the raw
+        objects and the memory mask, all at clip level (Va the encoded
+        memory, Av the detected objects)."""
+        caches0 = self.init_decode_caches(B, L)
+        inv = {"kv_mem": self.precompute_decode_mem(Va),
+               "sw": self.step_weights(), "objs": Av.contiguous(),
+               "mask": masks_src["V_mask"]}
+        valid0 = torch.zeros(B, L, dtype=torch.bool, device=Va.device)
+        valid0[:, 0] = True
+        return caches0, valid0, inv
+
+    def fast_step(self, tok_t, t: torch.Tensor, caches, valid, inv,
+                  beam_share: int = 1):
+        """One token (t a 0-d int64 tensor), as
+        ``HierarchicalAgent.fast_step``: the caches are written in place and
+        returned. The object attention is folded onto the raw objects (one
+        ``folded_attend`` per layer, the W beams of a clip in its query
+        groups)."""
+        return self.decode_step(tok_t, t, caches, inv["mask"], inv["kv_mem"],
+                                inv["objs"], valid, inv["sw"],
+                                beam_share), caches
+
     def fast_setup(self, Va, Av, masks_src, B: int, L: int,
                    beam_share: int = 1):
         """The fast loop's state and per-token step, as
-        ``HierarchicalAgent.fast_setup``: Va is the encoded memory, Av the
-        detected objects, both at clip level; the memory's keys/values are
-        projected once per call and the object attention is folded onto
-        the raw objects (one ``folded_attend`` per layer, the W beams of a
-        clip in its query groups)."""
-        caches0 = self.init_decode_caches(B, L)
-        kv_mem = self.precompute_decode_mem(Va)
-        sw = self.step_weights()
-        objs = Av.contiguous()
-        valid0 = torch.zeros(B, L, dtype=torch.bool, device=Va.device)
-        valid0[:, 0] = True
+        ``HierarchicalAgent.fast_setup``."""
+        caches0, valid0, inv = self.fast_state(Va, Av, masks_src, B, L)
 
-        def step_fn(tok_t, t: int, caches, valid):
-            return self.decode_step(tok_t, t, caches, masks_src["V_mask"],
-                                    kv_mem, objs, valid, sw,
-                                    beam_share), caches
+        def step_fn(tok_t, t, caches, valid):
+            return self.fast_step(tok_t, t, caches, valid, inv, beam_share)
 
         return caches0, valid0, step_fn
 
@@ -522,15 +537,16 @@ class DetrCaption(nn.Module):
         return [self.worker_decoder.layer(i).step_weights()
                 for i in range(self.num_layers)]
 
-    def decode_step(self, tok_t, t: int, caches, memory_mask, kv_mem,
-                    hs_obj, key_mask, sw, beam_share: int = 1):
-        """One token: EOS -> PAD, embed, the decoder stack's step (caches
-        written in place), final norm, vocabulary head. Returns (R, V)
-        log-probs. ``memory_mask`` (B, 1, S) and ``hs_obj`` are per clip;
-        ``sw``: ``step_weights()``."""
+    def decode_step(self, tok_t, t: torch.Tensor, caches, memory_mask,
+                    kv_mem, hs_obj, key_mask, sw, beam_share: int = 1):
+        """One token at position t (a 0-d int64 tensor): EOS -> PAD, embed,
+        the decoder stack's step (caches written in place), final norm,
+        vocabulary head. Returns (R, V) log-probs. ``memory_mask`` (B, 1,
+        S) and ``hs_obj`` are per clip; ``sw``: ``step_weights()``."""
         dt = self.dtype
         x = self.emb_C(self._caption_input(tok_t)[:, None]).to(dt)
-        pe_row = self.pos_enc_C.table[t][None, None, :].to(dt)
+        pe_row = self.pos_enc_C.table.index_select(0, t.reshape(1))[None].to(
+            dt)
         dec = self.worker_decoder
         for i in range(self.num_layers):
             x = dec.layer(i).step(x, t, caches["dec"][i], memory_mask,

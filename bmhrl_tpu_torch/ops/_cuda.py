@@ -10,6 +10,11 @@ installation imports every module and never reaches ``nvcc``.
 
 ``LAUNCHES`` counts, per kernel wrapper, the launches of its kernel; a
 wrapper adds one where it launches and nowhere else.
+
+``register_op`` makes each kernel entry point a ``torch.library`` custom op
+of the ``bmhrl`` namespace (``ops.attention``, ``ops.critic_kernels``), so
+that ``torch.export`` programs hold the call and ``torch.export.load``
+finds it once ``bmhrl_tpu_torch.ops`` is imported.
 """
 from __future__ import annotations
 
@@ -41,6 +46,17 @@ LAUNCHES: Dict[str, int] = {"flash_attention_tc": 0,
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def register_op(name: str, impl, schema: str, fake):
+    """Register ``impl`` as the custom op ``bmhrl::<name>`` with the given
+    schema (no input is mutated) and ``fake`` as its fake implementation
+    (the output's shape, dtype and device). ``impl`` serves every device:
+    the plain version for CPU tensors, the kernel for CUDA tensors."""
+    op = torch.library.custom_op(f"bmhrl::{name}", impl, mutates_args=(),
+                                 schema=schema)
+    op.register_fake(fake)
+    return op
 
 
 def reset_launches() -> None:

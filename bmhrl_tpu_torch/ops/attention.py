@@ -2,16 +2,20 @@
 and the fusion layers' cross-attention) and folded attention against raw
 memories (decode).
 
-Each public function is a wrapper: for tensors on the CPU it runs the plain
-PyTorch version beside it (``*_plain``), for CUDA tensors it launches the
-hand-written kernel of ``csrc/`` or raises. The plain versions repeat the
-kernels' arithmetic, so the CPU tests hold them against the JAX package and
-``chip_smoke.py`` holds the kernels against them on the card.
+Each kernel entry point is a ``torch.library`` custom op of the ``bmhrl``
+namespace (``bmhrl::flash_attention_bsd``, ``bmhrl::folded_attend``), so an
+exported program (``serve_export``) carries the call: for tensors on the
+CPU the op runs the plain PyTorch version beside it (``*_plain``), for
+CUDA tensors it launches the hand-written kernel of ``csrc/`` on the
+current stream or raises; its fake gives the output's shape, dtype and
+device. The public functions are wrappers over the ops. The plain versions
+repeat the kernels' arithmetic, so the CPU tests hold them against the JAX
+package and ``chip_smoke.py`` holds the kernels against them on the card.
 
 Flash attention is differentiable through one ``torch.autograd.Function``
-on both devices: its forward is the kernel (or the plain version on the
-CPU), its backward the JAX package's recompute (``_flash_bsd_bwd``, XLA
-there, plain PyTorch here), which launches no kernel of ``csrc/``.
+on both devices: its forward is the op, its backward the JAX package's
+recompute (``_flash_bsd_bwd``, XLA there, plain PyTorch here), which
+launches no kernel of ``csrc/``.
 """
 from __future__ import annotations
 
@@ -83,10 +87,68 @@ def flash_attention_bsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The inputs may be views with any batch and row strides (the model passes
     column slices of one merged QKV projection) but unit stride along the
-    last axis. The call goes through ``FlashAttentionBSD``; under
-    ``no_grad``, or when no input requires grad, autograd keeps nothing for
-    a backward."""
-    return FlashAttentionBSD.apply(q, k, v, mask, H, causal)
+    last axis. Under autograd (grad on and an input that requires grad)
+    the call goes through ``FlashAttentionBSD``; otherwise it is the op
+    ``bmhrl::flash_attention_bsd`` alone, which is what an exported
+    program holds."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionBSD.apply(q, k, v, mask, H, causal)
+    return torch.ops.bmhrl.flash_attention_bsd(q, k, v, mask, H, causal)
+
+
+def _flash_attention_bsd_op(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mask: Optional[torch.Tensor],
+                            H: int, causal: bool) -> torch.Tensor:
+    """``bmhrl::flash_attention_bsd``: the plain version for CPU tensors,
+    else one launch of the route's kernel on the current stream."""
+    if q.device.type == "cpu":
+        return flash_attention_bsd_plain(q, k, v, mask, H, causal)
+    what = "flash_attention_bsd"
+    _cuda.require_cuda(what, q, k, v)
+    B, Sq, HD = q.shape
+    Sk = k.shape[1]
+    if k.shape != (B, Sk, HD) or v.shape != (B, Sk, HD):
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if k.dtype != q.dtype or v.dtype != q.dtype or HD % H:
+        raise ValueError(f"{what}: q/k/v types {q.dtype}, {k.dtype}, "
+                         f"{v.dtype} or width {HD} over {H} heads")
+    d = HD // H
+    route = flash_route(q.dtype, d)
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"{what}: the last axis must have unit stride")
+    if route == "tc" and any(t.data_ptr() % 16 or t.stride(0) % 8
+                             or t.stride(1) % 8 for t in (q, k, v)):
+        raise ValueError(f"{what}: the tensor-core kernel copies 16-byte "
+                         "rows: q/k/v must be 16-byte aligned with batch "
+                         "and row strides that are multiples of 8")
+    if mask is None:
+        mask = torch.ones(B, Sk, dtype=torch.int32, device=q.device)
+    else:
+        if mask.shape != (B, Sk):
+            raise ValueError(f"{what}: mask {tuple(mask.shape)} != "
+                             f"{(B, Sk)}")
+        _cuda.require_cuda(what, q, mask)
+        mask = mask.to(torch.int32).contiguous()
+    out = torch.empty(B, Sq, HD, dtype=q.dtype, device=q.device)
+    lib = _flash_lib()
+    fn = (lib.bmhrl_flash_attention_tc if route == "tc"
+          else lib.bmhrl_flash_attention_simt)
+    err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             mask.data_ptr(), out.data_ptr(), B, Sq, Sk, H, d, q.stride(0),
+             q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+             1.0 / math.sqrt(d), int(causal), _cuda.stream_of(q))
+    _cuda.check(lib, err, f"{what} ({route}, B={B}, Sq={Sq}, Sk={Sk}, d={d})")
+    _cuda.LAUNCHES[f"flash_attention_{route}"] += 1
+    return out
+
+
+_cuda.register_op(
+    "flash_attention_bsd", _flash_attention_bsd_op,
+    "(Tensor q, Tensor k, Tensor v, Tensor? mask, int H, bool causal) -> "
+    "Tensor",
+    lambda q, k, v, mask, H, causal: q.new_empty(q.shape))
 
 
 def flash_attention_bsd_bwd(q: torch.Tensor, k: torch.Tensor,
@@ -129,8 +191,9 @@ def flash_attention_bsd_bwd(q: torch.Tensor, k: torch.Tensor,
 
 
 class FlashAttentionBSD(torch.autograd.Function):
-    """``flash_attention_bsd`` under autograd. Forward: the plain version for
-    CPU tensors, else one launch of the route's kernel. Backward:
+    """``flash_attention_bsd`` under autograd. Forward: the op
+    ``bmhrl::flash_attention_bsd`` (the plain version for CPU tensors, else
+    one launch of the route's kernel). Backward:
     ``flash_attention_bsd_bwd``, which launches no kernel. The gradients of
     q, k and v are returned whole; where they are column views of one merged
     projection, autograd sums them into its gradient."""
@@ -139,49 +202,7 @@ class FlashAttentionBSD(torch.autograd.Function):
     def forward(ctx, q, k, v, mask, H, causal):
         ctx.H, ctx.causal = H, causal
         ctx.save_for_backward(q, k, v, mask)
-        if q.device.type == "cpu":
-            return flash_attention_bsd_plain(q, k, v, mask, H, causal)
-        what = "flash_attention_bsd"
-        _cuda.require_cuda(what, q, k, v)
-        B, Sq, HD = q.shape
-        Sk = k.shape[1]
-        if k.shape != (B, Sk, HD) or v.shape != (B, Sk, HD):
-            raise ValueError(f"{what}: q {tuple(q.shape)}, k "
-                             f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
-                             "match")
-        if k.dtype != q.dtype or v.dtype != q.dtype or HD % H:
-            raise ValueError(f"{what}: q/k/v types {q.dtype}, {k.dtype}, "
-                             f"{v.dtype} or width {HD} over {H} heads")
-        d = HD // H
-        route = flash_route(q.dtype, d)
-        if any(t.stride(-1) != 1 for t in (q, k, v)):
-            raise ValueError(f"{what}: the last axis must have unit stride")
-        if route == "tc" and any(t.data_ptr() % 16 or t.stride(0) % 8
-                                 or t.stride(1) % 8 for t in (q, k, v)):
-            raise ValueError(f"{what}: the tensor-core kernel copies 16-byte "
-                             "rows: q/k/v must be 16-byte aligned with batch "
-                             "and row strides that are multiples of 8")
-        if mask is None:
-            mask = torch.ones(B, Sk, dtype=torch.int32, device=q.device)
-        else:
-            if mask.shape != (B, Sk):
-                raise ValueError(f"{what}: mask {tuple(mask.shape)} != "
-                                 f"{(B, Sk)}")
-            _cuda.require_cuda(what, q, mask)
-            mask = mask.to(torch.int32).contiguous()
-        out = torch.empty(B, Sq, HD, dtype=q.dtype, device=q.device)
-        lib = _flash_lib()
-        fn = (lib.bmhrl_flash_attention_tc if route == "tc"
-              else lib.bmhrl_flash_attention_simt)
-        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), mask.data_ptr(), out.data_ptr(), B, Sq, Sk, H,
-                 d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                 v.stride(0), v.stride(1), 1.0 / math.sqrt(d), int(causal),
-                 _cuda.stream_of(q))
-        _cuda.check(lib, err,
-                    f"{what} ({route}, B={B}, Sq={Sq}, Sk={Sk}, d={d})")
-        _cuda.LAUNCHES[f"flash_attention_{route}"] += 1
-        return out
+        return torch.ops.bmhrl.flash_attention_bsd(q, k, v, mask, H, causal)
 
     @staticmethod
     def backward(ctx, g):
@@ -284,8 +305,17 @@ def folded_attend(q_eff: torch.Tensor, mem: torch.Tensor,
     memory with unit stride along draw, 16-byte aligned, batch and row
     strides multiples of 8, and an int32 mask: one launch, nothing copied.
     The "simt" kernel serves a clip's queries in blocks of
-    ``folded_simt_chunk(draw)``, so any G fits its shared memory.
+    ``folded_simt_chunk(draw)``, so any G fits its shared memory. The
+    call is the op ``bmhrl::folded_attend``.
     """
+    return torch.ops.bmhrl.folded_attend(q_eff, mem, mask, scale)
+
+
+def _folded_attend_op(q_eff: torch.Tensor, mem: torch.Tensor,
+                      mask: Optional[torch.Tensor],
+                      scale: float) -> torch.Tensor:
+    """``bmhrl::folded_attend``: the plain version for CPU tensors, else one
+    launch of the route's kernel on the current stream."""
     if q_eff.device.type == "cpu":
         return folded_attend_plain(q_eff, mem, mask, scale)
     what = "folded_attend"
@@ -335,6 +365,13 @@ def folded_attend(q_eff: torch.Tensor, mem: torch.Tensor,
                               f"draw={draw}, chunk={chunk})")
     _cuda.LAUNCHES[f"folded_attend_{route}"] += 1
     return out
+
+
+_cuda.register_op(
+    "folded_attend", _folded_attend_op,
+    "(Tensor q_eff, Tensor mem, Tensor? mask, float scale) -> Tensor",
+    lambda q_eff, mem, mask, scale: q_eff.new_empty(q_eff.shape,
+                                                    dtype=torch.float32))
 
 
 def _flash_lib():

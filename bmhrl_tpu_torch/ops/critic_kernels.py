@@ -9,8 +9,12 @@ math allows (the layout is spelled out in ``PackedCell``). The critic is
 frozen, so a decode packs once (``SegmentCritic.step_weights``) and every
 token's cells read the packed form.
 
-The wrappers run the plain version beside them for CPU tensors and launch
-the kernel for CUDA tensors (or raise). Exact f32 either way.
+Each cell is a ``torch.library`` custom op (``bmhrl::lstm_cell_packed``,
+``bmhrl::gru_cell_packed``) over the packed buffers and the widths as plain
+tensors and ints, so an exported program carries it: the op runs the plain
+version beside it for CPU tensors and launches the kernel on the current
+stream for CUDA tensors (or raises). Exact f32 either way. The wrappers
+take a ``PackedCell`` and call the op.
 """
 from __future__ import annotations
 
@@ -171,7 +175,24 @@ def _check(what, x, h, p: PackedCell, G: int, extra=()):
 def lstm_cell_packed(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                      p: PackedCell) -> Tuple[torch.Tensor, torch.Tensor]:
     """One LSTM cell step over packed weights (``pack_lstm``). x (B, K);
-    h, c (B, H). Returns (h', c')."""
+    h, c (B, H). Returns (h', c'): the op ``bmhrl::lstm_cell_packed``."""
+    return torch.ops.bmhrl.lstm_cell_packed(x, h, c, p.w, p.b, p.K, p.H)
+
+
+def gru_cell_packed(x: torch.Tensor, h: torch.Tensor,
+                    p: PackedCell) -> torch.Tensor:
+    """One GRU cell step over packed weights (``pack_gru``), torch gate
+    semantics. x (B, K); h (B, H). Returns h': the op
+    ``bmhrl::gru_cell_packed``."""
+    return torch.ops.bmhrl.gru_cell_packed(x, h, p.w, p.b, p.K, p.H)
+
+
+def _lstm_cell_op(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                  w: torch.Tensor, b: torch.Tensor, K: int, H: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``bmhrl::lstm_cell_packed``: the plain version for CPU tensors, else
+    one launch of ``lstm_cell_kernel`` on the current stream."""
+    p = PackedCell(w, b, K, H)
     if x.device.type == "cpu":
         return lstm_cell_packed_plain(x, h, c, p)
     what = "lstm_cell"
@@ -180,32 +201,42 @@ def lstm_cell_packed(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     c_out = torch.empty_like(c)
     lib = _lib()
     err = lib.bmhrl_lstm_cell(x.data_ptr(), h.data_ptr(), c.data_ptr(),
-                              p.w.data_ptr(), p.b.data_ptr(),
-                              h_out.data_ptr(), c_out.data_ptr(), B, p.K,
-                              p.H, *p.w.shape, p.b.shape[0], vec4,
-                              _cuda.stream_of(x))
+                              w.data_ptr(), b.data_ptr(), h_out.data_ptr(),
+                              c_out.data_ptr(), B, K, H, *w.shape,
+                              b.shape[0], vec4, _cuda.stream_of(x))
     _cuda.check(lib, err, what)
     _cuda.LAUNCHES["lstm_cell"] += 1
     return h_out, c_out
 
 
-def gru_cell_packed(x: torch.Tensor, h: torch.Tensor,
-                    p: PackedCell) -> torch.Tensor:
-    """One GRU cell step over packed weights (``pack_gru``), torch gate
-    semantics. x (B, K); h (B, H). Returns h'."""
+def _gru_cell_op(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor, K: int, H: int) -> torch.Tensor:
+    """``bmhrl::gru_cell_packed``: the plain version for CPU tensors, else
+    one launch of ``gru_cell_kernel`` on the current stream."""
+    p = PackedCell(w, b, K, H)
     if x.device.type == "cpu":
         return gru_cell_packed_plain(x, h, p)
     what = "gru_cell"
     B, vec4 = _check(what, x, h, p, 3)
     h_out = torch.empty_like(h)
     lib = _lib()
-    err = lib.bmhrl_gru_cell(x.data_ptr(), h.data_ptr(), p.w.data_ptr(),
-                             p.b.data_ptr(), h_out.data_ptr(), B, p.K, p.H,
-                             *p.w.shape, p.b.shape[0], vec4,
-                             _cuda.stream_of(x))
+    err = lib.bmhrl_gru_cell(x.data_ptr(), h.data_ptr(), w.data_ptr(),
+                             b.data_ptr(), h_out.data_ptr(), B, K, H,
+                             *w.shape, b.shape[0], vec4, _cuda.stream_of(x))
     _cuda.check(lib, err, what)
     _cuda.LAUNCHES["gru_cell"] += 1
     return h_out
+
+
+_cuda.register_op(
+    "lstm_cell_packed", _lstm_cell_op,
+    "(Tensor x, Tensor h, Tensor c, Tensor w, Tensor b, int K, int H) -> "
+    "(Tensor, Tensor)",
+    lambda x, h, c, w, b, K, H: (torch.empty_like(h), torch.empty_like(c)))
+_cuda.register_op(
+    "gru_cell_packed", _gru_cell_op,
+    "(Tensor x, Tensor h, Tensor w, Tensor b, int K, int H) -> Tensor",
+    lambda x, h, w, b, K, H: torch.empty_like(h))
 
 
 def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,

@@ -14,8 +14,9 @@ sampled or beam-search captions.
   server that advances batch by batch) or ``train.decode.beam_decode``:
   the encoder once per clip and O(1) positions per generated token.
 
-Multi-device serving is not ported yet. Results come back in the ANet
-submission format.
+A server of exported programs (``serve_export.ExportedCaptionServer``)
+inherits the scheduling and IO. Multi-device serving is not ported yet.
+Results come back in the ANet submission format.
 """
 from __future__ import annotations
 
@@ -203,8 +204,8 @@ def _load_batch(reqs: Sequence[ClipRequest], idxs: List[int], vb: int,
 
 
 class CaptionServer:
-    """Holds a loaded captioner (``BMHrlAgent``, or a ``UnimodalAgent`` of
-    the AHRL/VHRL family) and captions request lists on
+    """Holds a loaded captioner (``BMHrlAgent``, a ``UnimodalAgent`` of
+    the AHRL/VHRL family or a ``DetrCaption``) and captions request lists on
     ``device`` (the model's device): greedily by default, by beam search
     with ``beam_width`` > 1 (``length_penalty``: GNMT normalisation), or by
     sampling with ``sample`` (``temperature``, ``top_k``, ``top_p``; draws
@@ -218,7 +219,7 @@ class CaptionServer:
         self.model = model
         self.itos = itos
         self.device = resolve_device(device)
-        if model.device != self.device:
+        if model is not None and model.device != self.device:
             raise ValueError(f"model on {model.device}, server on "
                              f"{self.device}")
         self.beam_width = int(beam_width)
@@ -242,9 +243,13 @@ class CaptionServer:
             if not 0.0 <= self.top_p <= 1.0:
                 raise ValueError(f"top_p={self.top_p} must be in [0, 1]")
             self._draws = Draws(sample_seed, self.device)
+        # a server of exported programs (serve_export) runs fixed batch
+        # shapes: tails pad to the full batch size
+        self._fixed_batch = False
 
     def _decode(self, feats: Dict, masks_src: Dict):
-        """One batch -> token ids (B, max_len+1)."""
+        """One batch -> token ids (B, max_len+1). Overridden by the server of
+        exported programs (``serve_export.ExportedCaptionServer``)."""
         args = (self.model, feats, masks_src, self.cfg.max_len, BOS, EOS,
                 PAD)
         if self.beam_width > 1:
@@ -270,9 +275,10 @@ class CaptionServer:
         with ThreadPoolExecutor(max_workers=io_threads) as pool:
             def batch_iter() -> Iterator[Dict]:
                 for idxs, vb, ab in plan:
-                    # tails round up to the next power of two
-                    pad_to = (bs if len(idxs) == bs else
-                              min(bs, 1 << (len(idxs) - 1).bit_length()))
+                    # tails round up to the next power of two (to the full
+                    # batch for fixed batch shapes)
+                    pad_to = (bs if len(idxs) == bs or self._fixed_batch
+                              else min(bs, 1 << (len(idxs) - 1).bit_length()))
                     yield _load_batch(reqs, idxs, vb, ab, cfg, pad_to, pool)
 
             t0 = time.perf_counter()

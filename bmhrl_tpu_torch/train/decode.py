@@ -26,7 +26,10 @@ loop of ``decode(exploration=True)``: the Manager's exploration noise
 needs the statistics of the whole buffer.
 
 Both loops are host loops over positions that stop once every row has
-emitted </s> (one device sync per token). Randomness comes from a
+emitted </s> (one device sync per token). The fast step takes its position
+as a 0-d int64 tensor on the device, a view of one ``torch.arange`` made
+per decode, so the step is one function of tensors (``serve_export``
+exports it). Randomness comes from a
 ``blocks.Draws``: one (B, V) uniform of its "sample" stream per sampled
 step, one (d_goal,) normal of its "noise" stream per exploring step.
 
@@ -94,17 +97,21 @@ def _start(B: int, L: int, start_idx: int, pad_idx: int, dev):
             torch.zeros(B, dtype=torch.bool, device=dev))
 
 
-def _decode_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
-                      start_idx: int, end_idx: int, pad_idx: int,
-                      greedy: bool, draws: Optional[Draws], sample_args):
-    L = max_len + 1
-    trg, probs, done = _start(B, L, start_idx, pad_idx, Va.device)
-    caches, valid, step_fn = model.fast_setup(Va, Av, masks_src, B, L)
+def _fast_loop(caches, valid, step_fn, B: int, max_len: int, start_idx: int,
+               end_idx: int, pad_idx: int, greedy: bool,
+               draws: Optional[Draws], sample_args):
+    """The fast loop over positions from its start (``fast_setup``'s
+    caches, validity buffer and step; the exported programs' in
+    ``serve_export``): one step a token, the position a view of one
+    ``torch.arange``, one host sync a token."""
+    dev = valid.device
+    trg, probs, done = _start(B, max_len + 1, start_idx, pad_idx, dev)
+    positions = torch.arange(max_len, device=dev)
     for t in range(max_len):
         tok_t = trg[:, t]
         valid[:, t] = tok_t != pad_idx
         valid[:, 0] = True
-        logits_t, caches = step_fn(tok_t, t, caches, valid)
+        logits_t, caches = step_fn(tok_t, positions[t], caches, valid)
         nxt = _pick(logits_t, greedy, draws, sample_args)
         trg[:, t + 1] = nxt
         # the model's TRUE probability of the chosen token: the sampling
@@ -114,6 +121,15 @@ def _decode_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
         if bool(done.all()):
             break
     return trg, probs
+
+
+def _decode_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
+                      start_idx: int, end_idx: int, pad_idx: int,
+                      greedy: bool, draws: Optional[Draws], sample_args):
+    caches, valid, step_fn = model.fast_setup(Va, Av, masks_src, B,
+                                              max_len + 1)
+    return _fast_loop(caches, valid, step_fn, B, max_len, start_idx, end_idx,
+                      pad_idx, greedy, draws, sample_args)
 
 
 def full_buffer_step(model, trg, labels, t: int, crit, crit_w, Va, Av,
@@ -229,22 +245,22 @@ def _beam_pick(trg, scores, lengths, B: int, W: int, length_penalty: float):
     return trg[rows], scores[rows]
 
 
-def _beam_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
-                    start_idx: int, end_idx: int, pad_idx: int, W: int,
+def _beam_fast_loop(caches, valid, step_fn, B: int, W: int, max_len: int,
+                    start_idx: int, end_idx: int, pad_idx: int,
                     length_penalty: float):
-    """Beam search over the incremental step: every per-row cache (KV,
-    critic state, goal buffer, boundary flag, validity) gathered by parent
-    beam each step; memories at clip level, shared by the beams."""
-    L = max_len + 1
-    trg, done, scores, lengths = _beam_start(B, W, L, start_idx, pad_idx,
-                                             Va.device)
-    caches, valid, step_fn = model.fast_setup(Va, Av, masks_src, B * W, L,
-                                              beam_share=W)
+    """Beam search over the incremental step from its start (B x W rows):
+    every per-row cache (KV, critic state, goal buffer, boundary flag,
+    validity) gathered by parent beam each step; memories at clip level,
+    shared by the beams."""
+    dev = valid.device
+    trg, done, scores, lengths = _beam_start(B, W, max_len + 1, start_idx,
+                                             pad_idx, dev)
+    positions = torch.arange(max_len, device=dev)
     for t in range(max_len):
         tok_t = trg[:, t]
         valid[:, t] = tok_t != pad_idx
         valid[:, 0] = True
-        logits_t, caches = step_fn(tok_t, t, caches, valid)
+        logits_t, caches = step_fn(tok_t, positions[t], caches, valid)
         parent, token, scores = _beam_step(logits_t, scores, done, B, W,
                                            pad_idx)
         prev_done = done[parent]
@@ -257,6 +273,15 @@ def _beam_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
         if bool(done.all()):
             break
     return _beam_pick(trg, scores, lengths, B, W, length_penalty)
+
+
+def _beam_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
+                    start_idx: int, end_idx: int, pad_idx: int, W: int,
+                    length_penalty: float):
+    caches, valid, step_fn = model.fast_setup(Va, Av, masks_src, B * W,
+                                              max_len + 1, beam_share=W)
+    return _beam_fast_loop(caches, valid, step_fn, B, W, max_len, start_idx,
+                           end_idx, pad_idx, length_penalty)
 
 
 def _beam_loop_full(model, Va, Av, masks_src, B: int, max_len: int,

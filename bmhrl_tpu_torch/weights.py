@@ -80,6 +80,28 @@ def load_jax_params(model: nn.Module, tree: Dict) -> nn.Module:
     return model
 
 
+def flax_keys(model: nn.Module) -> Dict[str, Tuple[str, bool]]:
+    """{parameter name: (its "a/b/c" key under "params" in the flax tree,
+    transposed: all axes reversed)} for every parameter of ``model``."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(p)]: ("/".join(path), transposed)
+            for path, p, transposed in _flax_paths(model)}
+
+
+@torch.no_grad()
+def jax_layout_params(model: nn.Module) -> Dict:
+    """The inverse of ``load_jax_params``: ``model``'s weights as a flax
+    variable tree ``{"params": ...}`` of numpy f32 arrays."""
+    tree: Dict = {}
+    for path, p, transposed in _flax_paths(model):
+        arr = p.detach().float().cpu().numpy()
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(arr.T if transposed else arr)
+    return {"params": tree}
+
+
 def random_jax_layout_params(dims: Dict, seed: int = 0) -> Dict:
     """A random flax-layout tree ``{"params": ...}`` of numpy f32 arrays with
     the keys and shapes that the JAX package's ``init`` of the agent gives

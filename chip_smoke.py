@@ -137,7 +137,20 @@ Phases, each of which raises at its first failure:
    slice's main path (launches zeroed just before and read just after:
    every tensor-core kernel and both cells, no CUDA-core route), equal to
    the direct predict + postprocess + ``CaptionServer.caption``;
-12. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
+12. export: AOT serving bundles (``serve_export``). The four kernel
+   entry points, ``torch.library`` custom ops, pass
+   ``torch.library.opcheck`` with CUDA tensors at serving shapes; the
+   flagship (seed-0 weights) exported greedy and with beam W=4 for the 64
+   requests at B=32 (``setup`` and ``step`` programs, weights as inputs,
+   ``params.npz``) and served from the bundle and from the live
+   CaptionServer (both row-padding tails to 32), each serve a main path
+   with its launches counted: identical submissions and equal launches per
+   kernel route; the bundle's loop syncs the host once per token; AHRL and
+   DETR bundles on 8 requests likewise; a JAX bundle is refused. Records:
+   export seconds per program, the bytes of ``params.npz`` and of the
+   programs, load seconds, greedy clips/s of bundle and live server taking
+   turns (median of 3);
+13. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
    one B=16 warmstart step under ``torch.profiler`` (last: a profiled
    process launches more slowly).
 
@@ -986,9 +999,10 @@ def forced_agreement(model, feats, masks, tokens):
             for valid in (vk, vp):
                 valid[:, t] = tok_t != 1
                 valid[:, 0] = True
-            lk, ck = step_k(tok_t, t, ck, vk)
+            pos = torch.tensor(t, device=tok_t.device)
+            lk, ck = step_k(tok_t, pos, ck, vk)
             with plain_kernels():
-                lp, cp = step_p(tok_t, t, cp, vp)
+                lp, cp = step_p(tok_t, pos, cp, vp)
             ak, ap = lk.argmax(-1), lp.argmax(-1)
             same.append(ak == ap)
             gap = lk.gather(1, ak[:, None]) - lk.gather(1, ap[:, None])
@@ -1075,7 +1089,9 @@ def score_gap(model, feats, masks, tokens, scores, end_idx, rows_per_clip):
         for t in range(L - 1):
             valid[:, t] = tokens[:, t] != 1
             valid[:, 0] = True
-            logp, caches = step(tokens[:, t], t, caches, valid)
+            logp, caches = step(tokens[:, t],
+                                torch.tensor(t, device=tokens.device),
+                                caches, valid)
             total += torch.where(ended, 0.0, logp.gather(
                 1, tokens[:, t + 1, None])[:, 0])
             ended |= tokens[:, t + 1] == end_idx
@@ -3621,6 +3637,187 @@ def phase_proposals(K, serve_model):
     proposal_clis(K, serve_model)
 
 
+def bundle_vs_live(K, model, cfg, itos, reqs, bs, what, key, beam_width=1,
+                   length_penalty=0.0, turns=0):
+    """Export ``model``'s decode for the shapes ``reqs`` plan at ``bs``
+    (``serve_export.export_decode_bundle``), load it and serve ``reqs``
+    from it and from the live CaptionServer (both with fixed batch shapes:
+    tails row-padded to ``bs``), each serve a main path with its launches
+    counted (the bundle's go to the ``kernels`` line as
+    ``launches_bundle_<key>``). Gates: the same submission, the same
+    launches per kernel route, no CUDA-core route, and every tensor-core
+    kernel launched (both cells too, except for the DETR, which has none
+    on its default path). With ``turns``, clips/s of both servers taking
+    turns (median). Returns the bundle's server."""
+    import torch
+
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.serve import CaptionServer, plan_batches
+    from bmhrl_tpu_torch.serve_export import (ExportedCaptionServer,
+                                              export_decode_bundle)
+
+    root = tempfile.mkdtemp()
+    try:
+        shapes = sorted({(bs, vb, ab) for _, vb, ab in plan_batches(
+            reqs, cfg, bs)})
+        t0 = time.perf_counter()
+        manifest = export_decode_bundle(cfg, model, itos, shapes, root,
+                                        beam_width=beam_width,
+                                        length_penalty=length_penalty)
+        export_s = time.perf_counter() - t0
+        files = {f: os.path.getsize(os.path.join(root, f))
+                 for f in sorted(os.listdir(root))}
+        server = ExportedCaptionServer(root, cfg.video_features_path,
+                                       cfg.audio_features_path, "cuda")
+    finally:
+        shutil.rmtree(root)
+    live = CaptionServer(cfg, model, itos, device="cuda",
+                         beam_width=beam_width,
+                         length_penalty=length_penalty)
+    live._fixed_batch = True
+    runs = {}
+    for name, srv in (("live", live), ("bundle", server)):
+        srv.caption(reqs[:3], batch_size=bs)  # warm-up
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        pred, stats = srv.caption(reqs, batch_size=bs)
+        torch.cuda.synchronize()
+        runs[name] = (pred, stats, dict(_cuda.LAUNCHES))
+    rates = {"live": [], "bundle": []}
+    for _ in range(turns):
+        for name, srv in (("live", live), ("bundle", server)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            srv.caption(reqs, batch_size=bs)
+            torch.cuda.synchronize()
+            rates[name].append(len(reqs) / (time.perf_counter() - t))
+    (want, _, l_live), (got, stats, l_bundle) = runs["live"], runs["bundle"]
+    sents = [s["sentence"] for segs in got["results"].values() for s in segs]
+    emit({"phase": "export", "what": what, "B": bs,
+          "beam_width": beam_width, "shapes": manifest["shapes"],
+          "export_s": export_s, "export_s_per_program": manifest["export_s"],
+          "bytes": files, "params_npz_bytes": files["params.npz"],
+          "programs_bytes": sum(v for f, v in files.items()
+                                if f.endswith(".pt2")),
+          "load_s": server.load_s, "weight_inputs": {
+              k: len(v["weights"]) for k, v in manifest["programs"].items()},
+          "state": manifest["state"], "answered": len(sents),
+          "equal_to_live": got == want, "launches_bundle": l_bundle,
+          "launches_live": l_live, "stats": stats.summary(),
+          "clips_per_s_bundle": statistics.median(rates["bundle"])
+          if turns else None,
+          "clips_per_s_live": statistics.median(rates["live"])
+          if turns else None, "samples": rates, "example": sents[:3]})
+    if len(sents) != len(reqs) or not all(sents) or got != want:
+        raise AssertionError(f"{what}: bundle answered {len(sents)}, equal "
+                             f"to live {got == want}")
+    if l_bundle != l_live:
+        raise AssertionError(f"{what}: launches {l_bundle} != live "
+                             f"{l_live}")
+    check_serve_launches(what, {
+        n: v for n, v in l_bundle.items()
+        if cfg.mode != "DETR" or n not in ("lstm_cell", "gru_cell")})
+    for name, n in l_bundle.items():
+        K[name].rec[f"launches_bundle_{key}"] = n
+    return server
+
+
+def phase_export(K, model):
+    """AOT serving bundles (``serve_export``) on the card: the four kernel
+    ops pass ``torch.library.opcheck`` with CUDA tensors at serving shapes;
+    the flagship (``model``: the serve phase's, seed-0 weights) exported
+    greedy and beam W=4 for the 64 requests at B=32 and served from the
+    bundle against the live CaptionServer in this call (``bundle_vs_live``:
+    the same submissions and launches), greedy clips/s of both taking
+    turns; the bundle's loop syncs the host once per token; AHRL and DETR
+    bundles on 8 requests; a JAX bundle is refused."""
+    import torch
+
+    from bmhrl_tpu_torch.cli.serve_captions import load_captioner
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import SPECIALS
+    from bmhrl_tpu_torch.ops import critic_kernels as ck
+    from bmhrl_tpu_torch import serve_export
+
+    # opcheck at serving shapes: flash on q/k/v views of one merged
+    # projection (B=32, 128 rows, 4 heads of 256, bf16), folded at the
+    # video call of one layer's step (B=32, G=8, S=128, draw 1024), the
+    # cells at B=32
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    qkv = rnd(32, 128, 3072, dtype=torch.bfloat16)
+    mask = (torch.rand(32, 128, generator=g, device="cuda") > 0.2).int()
+    lstm = ck.pack_lstm(rnd(2400, 300), rnd(2400, 600), rnd(2400))
+    gru = ck.pack_gru(rnd(1800, 600), rnd(1800, 600), rnd(1800), rnd(1800))
+    cases = {
+        "flash_attention_bsd": (*qkv.split(1024, dim=-1), mask, 4, False),
+        "folded_attend": (rnd(32, 8, 1024),
+                          rnd(32, 128, 1024, dtype=torch.bfloat16), mask,
+                          1 / 16),
+        "lstm_cell_packed": (rnd(32, 300), rnd(32, 600), rnd(32, 600),
+                             lstm.w, lstm.b, lstm.K, lstm.H),
+        "gru_cell_packed": (rnd(32, 600), rnd(32, 600), gru.w, gru.b, gru.K,
+                            gru.H)}
+    for op, args in cases.items():
+        result = torch.library.opcheck(getattr(torch.ops.bmhrl, op).default,
+                                       args)
+        emit({"phase": "export", "opcheck": op, "result": result})
+        if set(result.values()) != {"SUCCESS"}:
+            raise AssertionError(f"opcheck {op}: {result}")
+
+    itos = SPECIALS + [f"w{i}" for i in range(VOC - 4)]
+    with tempfile.TemporaryDirectory() as root:
+        vdir, adir, reqs = write_requests(root)
+        cfg = Config().replace(video_features_path=vdir,
+                               audio_features_path=adir)
+        greedy = bundle_vs_live(K, model, cfg, itos, reqs, 32,
+                                "BMHRL greedy", "serve", turns=3)
+        bundle_vs_live(K, model, cfg, itos, reqs, 32, "BMHRL beam W=4",
+                       "beam", beam_width=4, length_penalty=1.0)
+
+        # one host sync per token in the bundle's loop (it never stops
+        # early with EOS out of reach)
+        feats = make_feats(32, 128, 256, 1024, 128, "cuda", seed=32)
+
+        def run(n):
+            greedy.cfg = cfg.replace(max_len=n)
+            with mock.patch.object(serve_export, "EOS", -1):
+                greedy._decode(feats, None)
+
+        per_token, where = syncs_per_token(run)
+        greedy.cfg = cfg
+        emit({"phase": "export", "bundle_syncs_per_token": per_token,
+              "where": where})
+        if per_token != 1:
+            raise AssertionError(f"bundle loop: {per_token} syncs per "
+                                 f"token ({where})")
+
+        # 8 requests of one bucket pair (128, 256): one shape each
+        for mode in ("AHRL", "DETR"):
+            m = load_captioner(Config(mode=mode), VOC, None, "cuda")
+            bundle_vs_live(K, m, cfg.replace(mode=mode), itos, reqs[8:16],
+                           8, f"{mode} greedy", mode.lower())
+            del m
+            torch.cuda.empty_cache()
+
+        # a JAX bundle (jax.export blobs) is refused
+        jdir = os.path.join(root, "jax_bundle")
+        os.makedirs(jdir)
+        with open(os.path.join(jdir, "bundle.json"), "w") as f:
+            json.dump({"shapes": [[32, 128, 256]], "platforms": ["tpu"]}, f)
+        with open(os.path.join(jdir, "decode_B32xV128xA256.bin"), "wb") as f:
+            f.write(b"\0")
+        try:
+            serve_export.ExportedCaptionServer(jdir, vdir, adir, "cuda")
+        except serve_export.BundleError as e:
+            emit({"phase": "export", "jax_bundle_refused": str(e)})
+        else:
+            raise AssertionError("a JAX bundle was not refused")
+
+
 def span_busy(prof, prefix):
     """Per record_function span whose name starts with ``prefix``: its wall
     ms and the device ms of the kernels that ran inside it."""
@@ -3780,6 +3977,7 @@ def main() -> int:
               ("detr", lambda: phase_detr(K, made["serve"])),
               ("leftovers", lambda: phase_leftovers(K)),
               ("proposals", lambda: phase_proposals(K, made["serve"])),
+              ("export", lambda: phase_export(K, made["serve"])),
               # the profiler runs last: once it has traced, the host
               # launches more slowly
               ("profile", lambda: (profile_decode(made["serve"]),

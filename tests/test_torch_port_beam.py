@@ -137,7 +137,7 @@ def test_beam_score_is_sum_of_token_logprobs(tree):
         for t in range(MAX_LEN):
             valid[:, t] = toks[:, t] != PAD
             valid[:, 0] = True
-            logp, caches = step(toks[:, t], t, caches, valid)
+            logp, caches = step(toks[:, t], torch.tensor(t), caches, valid)
             total += torch.where(ended, 0.0,
                                  logp.gather(1, toks[:, t + 1, None])[:, 0])
             ended |= toks[:, t + 1] == EOS

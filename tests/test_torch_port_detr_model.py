@@ -160,7 +160,7 @@ def test_decode_step_matches_jax_decode_frontier(setups):
         for t in range(L):
             valid[:, t] = tb[:, t] != PAD
             valid[:, 0] = True
-            got.append(model.decode_step(tb[:, t], t, caches,
+            got.append(model.decode_step(tb[:, t], torch.tensor(t), caches,
                                          tms["V_mask"], kv_mem, Av, valid,
                                          sw).numpy())
         score, st = model.critic_step(tb[:, 0], model.critic_init_state(B_))

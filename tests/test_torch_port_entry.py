@@ -318,24 +318,34 @@ def test_serve_captions_cli_matches_jax(corpus, serve_pt, tmp_path, extra,
 @pytest.mark.parametrize("flags,message", [
     (["--checkpoint_dir", "ckpt"], "export_torch_bmhrl"),
     (["--mesh", "2"], "not ported yet"),
-    (["--export_bundle", "b"], "not ported yet"),
-    (["--from_bundle", "b"], "not ported yet")])
+    (["--from_bundle", "jax_bundle"], "run only under JAX"),
+    (["--from_bundle", "jax_bundle", "--mesh", "2"], "not ported yet")])
 def test_serve_captions_cli_refuses_what_is_not_ported(corpus, tmp_path,
                                                         flags, message):
-    """The flags the port lacks exit "not ported yet"; --checkpoint_dir
-    reads the port's own checkpoints and refuses an orbax directory (the
-    JAX package's) with the export message."""
+    """--mesh > 1 exits "not ported yet", with --from_bundle too;
+    --checkpoint_dir reads the port's own checkpoints and refuses an orbax
+    directory (the JAX package's) with the export message; --from_bundle
+    refuses a JAX bundle (jax.export blobs run only under JAX)."""
     from bmhrl_tpu_torch.cli.serve_captions import main
 
     if flags[0] == "--checkpoint_dir":
         os.makedirs(tmp_path / "ckpt" / "state")
         flags = ["--checkpoint_dir", str(tmp_path / "ckpt")]
+    if flags[0] == "--from_bundle":
+        # a JAX bundle's files: bundle.json, params.npz, a .bin blob
+        jdir = tmp_path / "jax_bundle"
+        jdir.mkdir()
+        (jdir / "bundle.json").write_text(json.dumps(
+            {"shapes": [[4, 32, 64]], "platforms": ["cpu"]}))
+        np.savez(jdir / "params.npz", w=np.zeros(1))
+        (jdir / "decode_B4xV32xA64.bin").write_bytes(b"\0")
+        flags = ["--from_bundle", str(jdir)] + flags[2:]
     with pytest.raises(SystemExit, match=message) as e:
         main(["--proposals", corpus["proposals"], "--video_features_path",
               "v", "--audio_features_path", "a", "--out",
               str(tmp_path / "o.json"), "--device", "cpu"] + flags)
     assert ("orbax" if flags[0] == "--checkpoint_dir"
-            else "not ported yet") in str(e.value)
+            else message) in str(e.value)
 
 
 @pytest.mark.parametrize("cli", ["serve_captions", "single_video"])

@@ -280,7 +280,8 @@ def test_fusion_layer_step_matches_jax(tree):
                                         scale)
             want = jl.apply(jp, C, ctxA, ctxV, method="step_mem_post")
         with torch.no_grad():
-            tC, tqA, tqV = tl.step_mem_pre(torch.from_numpy(c_t), t, tcache,
+            tC, tqA, tqV = tl.step_mem_pre(torch.from_numpy(c_t),
+                                           torch.tensor(t), tcache,
                                            torch.from_numpy(valid), sw)
             _close(tC.numpy(), C)
             _close(tqA.numpy(), qA)
