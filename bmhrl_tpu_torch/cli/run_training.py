@@ -7,8 +7,10 @@ and run ``train.loop.train_rl_cap``.
 
 ``--mode DETR`` trains the DETR captioner (``--with_reinforce``,
 ``--pre_goal_attention``), ``--mode verbose`` runs the loss-decomposition
-pass; a mesh of more than one device exits "not ported yet";
-``--rl_pretrained_model_dir`` and ``--auto_resume``
+pass (in one process). ``--mesh_data d`` trains data-parallel on d ranks
+started from this one command (0: every card; ``--device cpu``: gloo
+ranks on the CPU); ``--B`` is the batch of one rank. ``--mesh_model`` > 1 exits: the port has no
+model axis. ``--rl_pretrained_model_dir`` and ``--auto_resume``
 read the port's own checkpoints (a JAX run's orbax directory exits with a
 message).
 """
@@ -127,13 +129,16 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["train_rl_cap"])
     p.add_argument("--device_ids", type=int, nargs="+", default=[0],
                    help="accepted for reference-CLI compatibility; the mesh "
-                        "flags below control TPU devices")
+                        "flags below control the devices")
     p.add_argument("--debug", action="store_true", default=False)
     # --- TPU-native flags ---
     p.add_argument("--mesh_data", type=int, default=0,
-                   help="data-parallel mesh axis size (0 = all devices)")
+                   help="data-parallel ranks, one per card, started from "
+                        "this command (0 = every card; with --device cpu, "
+                        "gloo ranks on the CPU)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="model-parallel mesh axis size")
+                   help="model-parallel mesh axis size (only 1: the port "
+                        "has no tensor parallelism)")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--seed", type=int, default=0)
@@ -181,15 +186,25 @@ def create_config(argv=None) -> Config:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh_data > 1 or args.mesh_model > 1:
-        raise SystemExit("--mesh_data/--mesh_model > 1 is not ported yet: "
-                         "the port trains on one card")
+    if args.mesh_model > 1:
+        raise SystemExit("--mesh_model > 1: the port has no model axis (no "
+                         "tensor parallelism; the JAX loop replicates that "
+                         "axis, so (d, m) trains as (d, 1)): use "
+                         "--mesh_data d")
     pprint(vars(args))
     cfg = create_config(argv)
-    from bmhrl_tpu_torch.train.loop import train_rl_cap
+    from bmhrl_tpu_torch.parallel.mesh import resolve_data
+    from bmhrl_tpu_torch.train.loop import train_ranks, train_rl_cap
 
-    out = train_rl_cap(cfg, max_steps_per_epoch=args.max_steps_per_epoch,
-                       device=args.device)
+    if cfg.mesh_shape[0] <= 0:  # every card of --device
+        cfg = cfg.replace(mesh_shape=(resolve_data(cfg.mesh_shape,
+                                                   args.device), 1))
+
+    if cfg.mesh_shape[0] > 1:
+        out = train_ranks(cfg, args.device, args.max_steps_per_epoch)
+    else:
+        out = train_rl_cap(cfg, max_steps_per_epoch=args.max_steps_per_epoch,
+                           device=args.device)
     if cfg.mode == "eval" and isinstance(out, dict):
         for phase, metrics in out.items():
             line = "  ".join(f"{k}={v * 100:.2f}" for k, v in metrics.items()

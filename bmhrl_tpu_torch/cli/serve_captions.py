@@ -14,13 +14,21 @@ a ``run_training`` run's ``.../checkpoints/E_{n}``; every mode) or from a
 reference-layout ``.pt`` (``--torch_checkpoint``, BMHRL; the JAX package
 writes one from a trained tree with its ``export_torch_bmhrl``); without
 either the model has random weights. An orbax directory (the JAX
-package's checkpoints) and ``--mesh`` > 1 exit with a message.
+package's checkpoints) exits with a message.
+
+``--mesh n`` serves data-parallel on n ranks started from this one command
+(one card each; ``--device cpu``: gloo ranks on the CPU): each batch of
+``--batch_size`` is row-padded to a multiple of n as the JAX server pads
+for its data axis, each rank decodes its rows, and rank 0 writes the
+submission (``serve.CaptionServer(mesh=...)``).
 
 ``--export_bundle DIR`` exports, instead of serving, the decode programs
 (``serve_export``) for exactly the shapes this request set plans at
 ``--batch_size``, greedy or with ``--beam_width`` / ``--length_penalty``,
 on ``--device``; ``--from_bundle DIR`` serves such a bundle on
 ``--device`` (the platform it was exported on) without building a model.
+Neither takes ``--mesh`` > 1 yet: the step program computes the Manager's
+cross-row goals inside itself.
 Prints one JSON stats line (clips/s, latency percentiles, shape count) and
 returns the stats (the manifest after an export).
 """
@@ -29,21 +37,24 @@ from __future__ import annotations
 import argparse
 import json
 
-NOT_PORTED = {
-    "mesh": "--mesh > 1 is not ported yet: the port serves on one card",
-}
+BUNDLE_MESH = (
+    "--from_bundle/--export_bundle with --mesh > 1 is not ported yet: a "
+    "bundle's step program computes the Manager's cross-row goals "
+    "(frontier_goal) inside itself, so splitting its rows over ranks "
+    "needs the other ranks' boundary flags as program inputs; serve the "
+    "live model with --mesh, or a bundle on one device")
 
 
 def refuse_unported(args) -> None:
-    """Exit with a message for a flag the port lacks, for two sources of
+    """Exit with a message for a bundle over ranks, for two sources of
     weights at once, and for a ``--checkpoint_dir`` that is not a
     checkpoint of the port."""
     from bmhrl_tpu_torch.utils.checkpoint import refuse_orbax
 
-    for flag, msg in NOT_PORTED.items():
-        value = getattr(args, flag, None)
-        if value is not None and value > 1:
-            raise SystemExit(msg)
+    if getattr(args, "mesh", 1) > 1 and (
+            getattr(args, "from_bundle", None)
+            or getattr(args, "export_bundle", None)):
+        raise SystemExit(BUNDLE_MESH)
     if getattr(args, "checkpoint_dir", None):
         if args.torch_checkpoint:
             raise SystemExit("--checkpoint_dir and --torch_checkpoint are "
@@ -113,7 +124,8 @@ def main(argv=None):
     p.add_argument("--sample_seed", type=int, default=0)
     p.add_argument("--max_len", type=int, default=30)
     p.add_argument("--mesh", type=int, default=1,
-                   help="data-parallel mesh size (only 1 is ported)")
+                   help="data-parallel ranks, one per card (with --device "
+                        "cpu, gloo ranks on the CPU)")
     p.add_argument("--io_threads", type=int, default=8)
     p.add_argument("--compute_dtype", default="bfloat16")
     p.add_argument("--config_json", default=None,
@@ -133,10 +145,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     refuse_unported(args)
 
-    from bmhrl_tpu_torch.config import Config
-    from bmhrl_tpu_torch.data.vocab import build_vocab_from_tsv
-    from bmhrl_tpu_torch.serve import (CaptionServer, read_durations_json,
-                                       read_meta_tsv, read_proposals_json)
+    from bmhrl_tpu_torch.serve import (read_durations_json, read_meta_tsv,
+                                       read_proposals_json)
 
     durations = (read_durations_json(args.durations_json)
                  if args.durations_json else None)
@@ -156,6 +166,25 @@ def main(argv=None):
             raise SystemExit(str(e))
         return _serve(server, reqs, args)
 
+    if args.mesh > 1:
+        from bmhrl_tpu_torch.parallel.mesh import spawn
+
+        return spawn(_serve_rank, args.mesh, args.device, args=(args, reqs))
+    return _build_and_serve(args, reqs, args.device)
+
+
+def _serve_rank(mesh, args, reqs):
+    """One rank of ``--mesh``: its server; rank 0 writes the submission."""
+    return _build_and_serve(args, reqs, mesh.device, mesh)
+
+
+def _build_and_serve(args, reqs, device, mesh=None):
+    """The model of the flags on ``device``, then export it
+    (``--export_bundle``) or serve ``reqs``."""
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import build_vocab_from_tsv
+    from bmhrl_tpu_torch.serve import CaptionServer
+
     overrides = json.loads(args.config_json) if args.config_json else {}
     cfg = Config(
         mode=args.mode, train_meta_path=args.train_meta_path,
@@ -167,7 +196,7 @@ def main(argv=None):
     vocab = build_vocab_from_tsv(cfg.train_meta_path, cfg.min_freq_caps,
                                  cfg.glove_path, cfg.d_model_caps)
     model = load_captioner(cfg, len(vocab), args.torch_checkpoint,
-                           args.device, args.checkpoint_dir)
+                           device, args.checkpoint_dir)
     if args.export_bundle:
         from bmhrl_tpu_torch.serve import plan_batches
         from bmhrl_tpu_torch.serve_export import export_decode_bundle
@@ -180,22 +209,24 @@ def main(argv=None):
         print(json.dumps({"exported": manifest["shapes"],
                           "bundle": args.export_bundle}))
         return manifest
-    server = CaptionServer(cfg, model, vocab.itos, device=args.device,
+    server = CaptionServer(cfg, model, vocab.itos, device=device,
                            beam_width=args.beam_width,
                            length_penalty=args.length_penalty,
                            sample=args.sample, temperature=args.temperature,
                            top_k=args.top_k, top_p=args.top_p,
-                           sample_seed=args.sample_seed)
-    return _serve(server, reqs, args)
+                           sample_seed=args.sample_seed, mesh=mesh)
+    return _serve(server, reqs, args, mesh is None or mesh.is_main)
 
 
-def _serve(server, reqs, args):
-    """Caption ``reqs``, write the submission, print the stats line."""
+def _serve(server, reqs, args, main: bool = True):
+    """Caption ``reqs``; rank 0 (``main``) writes the submission and
+    prints the stats line."""
     predictions, stats = server.caption(reqs, batch_size=args.batch_size,
                                         io_threads=args.io_threads)
-    with open(args.out, "w") as f:
-        json.dump(predictions, f)
-    print(json.dumps(stats.summary()))
+    if main:
+        with open(args.out, "w") as f:
+            json.dump(predictions, f)
+        print(json.dumps(stats.summary()))
     return stats
 
 

@@ -10,6 +10,9 @@ the reduced dims of its CPU regression test.
     python -m bmhrl_tpu_torch.cli.synthetic_proof --out DIR --small \\
         --epochs 4 --device cpu
     python -m bmhrl_tpu_torch.cli.synthetic_proof --out DIR --generate_only
+
+``--mesh_data d`` trains on d data-parallel ranks (``--B`` per rank), as
+``run_training`` does.
 """
 from __future__ import annotations
 
@@ -61,7 +64,8 @@ def main(argv=None):
     p.add_argument("--warmstart", type=int, default=4)
     p.add_argument("--eval_from", type=int, default=0)
     p.add_argument("--B", type=int, default=16)
-    p.add_argument("--mesh_data", type=int, default=1)
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="data-parallel ranks (0 = every card)")
     p.add_argument("--scorer", default="CIDER",
                    choices=["CIDER", "METEOR", "BLEU"])
     p.add_argument("--small", action="store_true",
@@ -79,13 +83,15 @@ def main(argv=None):
     if args.generate_only:
         return None
 
-    from bmhrl_tpu_torch.train.loop import train_rl_cap
+    from bmhrl_tpu_torch.parallel.mesh import resolve_data
+    from bmhrl_tpu_torch.train.loop import train_ranks, train_rl_cap
 
-    if args.mesh_data > 1:
-        raise SystemExit("--mesh_data > 1 is not ported yet: the port "
-                         "trains on one card")
+    args.mesh_data = resolve_data((args.mesh_data, 1), args.device)
     cfg = build_config(paths, args)
-    out = train_rl_cap(cfg, device=args.device)
+    if args.mesh_data > 1:
+        out = train_ranks(cfg, args.device)
+    else:
+        out = train_rl_cap(cfg, device=args.device)
     print(f"best held-out METEOR: {out['best_metric'] * 100:.1f}")
     return out
 

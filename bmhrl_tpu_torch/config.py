@@ -1,12 +1,15 @@
 """Experiment configuration: the port's copy of bmhrl_tpu.config.Config,
 every field with the same name and default, so a ``--config_json`` that
 the JAX CLIs take is taken here too (and a key that Config lacks raises
-TypeError, as the dataclass does there). The port runs on one card:
-``mesh_shape`` is kept for the CLIs' flags but nothing shards over it.
+TypeError, as the dataclass does there).
 
-The values the JAX Config derives at construction (``curr_time``,
+``mesh_shape`` (d, m) is the data-parallel mesh (``parallel.mesh``): d
+ranks, one per device (0: every device). ``B`` is the batch of one device,
+so ``train_batch_size`` is ``B`` x d and ``inference_batch_size``
+``inf_B_coeff`` x that, the global batches, as in the JAX Config. The
+values the JAX Config derives at construction (``curr_time``,
 ``train_batch_size``, ``log_path``, ``model_checkpoint_path``) are plain
-attributes here, set the same way for one data-parallel device."""
+attributes here, set the same way."""
 from __future__ import annotations
 
 import dataclasses
@@ -147,7 +150,8 @@ class Config:
 
     def __post_init__(self):
         self.curr_time = strftime("%y%m%d%H%M%S", localtime())
-        self.train_batch_size = self.B
+        # global batch = per-device B x data devices
+        self.train_batch_size = self.B * self.num_data_devices()
         if self.to_log:
             base = os.path.join(self.log_dir, self.procedure)
             self.log_path = os.path.join(base, self.curr_time[2:])
@@ -185,9 +189,19 @@ class Config:
 
     @property
     def inference_batch_size(self) -> int:
-        """Serving batch on one card (the JAX package multiplies by the
-        number of data-parallel devices)."""
-        return self.inf_B_coeff * self.B
+        """The global serving batch: ``inf_B_coeff`` x ``train_batch_size``."""
+        return self.inf_B_coeff * self.train_batch_size
+
+    def num_data_devices(self) -> int:
+        """The data axis of ``mesh_shape``: d, or for d <= 0 every CUDA
+        device (over the model axis; 1 without a card)."""
+        d, m = self.mesh_shape
+        if d <= 0:
+            import torch
+
+            n = torch.cuda.device_count() if torch.cuda.is_available() else 1
+            d = max(1, n // max(1, m))
+        return d
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

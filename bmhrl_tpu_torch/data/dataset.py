@@ -8,6 +8,15 @@ padded into bucketed shapes, a missing feature file gives a zero stack.
 A batch holds ``video_ids, captions (raw strings), starts, ends, rgb,
 flow, audio, caption_idx (B, Lc int32), n_valid``.
 
+With a data-parallel ``mesh`` (``parallel.mesh``) a batch is this rank's
+rows of the global batch (``cfg.train_batch_size`` or
+``inference_batch_size`` rows, the global order): the rank loads only its
+rows' feature files and pads them to the buckets of the GLOBAL batch (the
+other rows' lengths come from their .npy headers), so every rank runs one
+shape, the one-process shape's rows. Its batch adds ``global_idxs``, the
+global batch's meta rows (without padding); the per-row lists hold this
+rank's real rows.
+
 ``Prefetcher`` stages the numeric arrays on the device from a worker
 thread: on CUDA it copies each array into pinned host memory and then to
 the card with ``non_blocking=True`` on a side stream, and records an
@@ -77,12 +86,14 @@ class CaptioningDataset:
     """A phase's captioning data (ActivityNet, VATEX, MSR-VTT or predicted
     proposals); the vocabulary is the train TSV's unless one is given."""
 
-    def __init__(self, cfg, phase: str, vocab: Optional[Vocab] = None):
+    def __init__(self, cfg, phase: str, vocab: Optional[Vocab] = None,
+                 mesh=None):
         if phase not in _PHASES:
             raise NotImplementedError(phase)
         meta_field, dirs, kind = _PHASES[phase]
         self.cfg = cfg
         self.phase = phase
+        self.mesh = mesh
         data_root = os.path.dirname(os.path.abspath(cfg.train_meta_path))
         self.meta_path = getattr(cfg, meta_field)
         if dirs is None:
@@ -133,40 +144,55 @@ class CaptioningDataset:
             row.start, row.end, row.duration, self.cfg.d_vid,
             self.cfg.d_aud)
 
+    def _lengths(self, row: MetaRow):
+        return F.feature_lengths(row.video_dir or self.video_path,
+                                 row.audio_dir or self.audio_path,
+                                 row.video_id, row.start, row.end,
+                                 row.duration)
+
     def make_batch(self, idxs: List[int], pad_to_batch: Optional[int] = None
                    ) -> Dict[str, np.ndarray]:
         """The batch of rows ``idxs``; with ``pad_to_batch`` the arrays
         repeat the first row up to that many rows (``n_valid`` counts the
-        real ones)."""
-        rows = [self.rows[i] for i in idxs]
-        feats = list(self._pool.map(self._load_row, rows))
+        real ones). With a mesh, this rank's rows of it in the buckets of
+        the whole batch: the rank loads its rows' features and reads the
+        other rows' lengths from their .npy headers."""
+        idxs = list(idxs)
+        B = pad_to_batch or len(idxs)
+        sl = slice(0, B) if self.mesh is None else self.mesh.rows(B)
+        mine = (idxs + [idxs[0]] * (B - len(idxs)))[sl]
+        unique = list(dict.fromkeys(mine))
+        feats = dict(zip(unique, self._pool.map(
+            self._load_row, [self.rows[i] for i in unique])))
+        others = [i for i in dict.fromkeys(idxs) if i not in feats]
+        lengths = {i: (f["rgb"].shape[0], f["audio"].shape[0])
+                   for i, f in feats.items()}
+        lengths.update(zip(others, self._pool.map(
+            self._lengths, [self.rows[i] for i in others])))
         cfg = self.cfg
-        vb = F.pick_bucket(max(f["rgb"].shape[0] for f in feats),
+        vb = F.pick_bucket(max(lengths[i][0] for i in idxs),
                            cfg.video_buckets)
-        ab = F.pick_bucket(max(f["audio"].shape[0] for f in feats),
+        ab = F.pick_bucket(max(lengths[i][1] for i in idxs),
                            cfg.audio_buckets)
-        cb = F.pick_bucket(max(len(r.tokens) + 2 for r in rows),
+        cb = F.pick_bucket(max(len(self.rows[i].tokens) + 2 for i in idxs),
                            cfg.caption_buckets)
-        n_valid = len(rows)
-        B = pad_to_batch or n_valid
-        arrays = [F.pad_stack([f["rgb"] for f in feats], vb),
-                  F.pad_stack([f["flow"] for f in feats], vb),
-                  F.pad_stack([f["audio"] for f in feats], ab),
-                  np.stack([self._encode_caption(r.tokens, cb)
-                            for r in rows])]
-        if B > n_valid:
-            arrays = [np.concatenate(
-                [x, np.repeat(x[:1], B - n_valid, axis=0)]) for x in arrays]
-        rgb, flow, audio, caps = arrays
-        return {
+        n_valid = max(0, min(sl.stop, len(idxs)) - sl.start)
+        rows = [self.rows[i] for i in mine[:n_valid]]
+        batch = {
             "video_ids": [r.video_id for r in rows],
             "captions": [r.caption for r in rows],
             "starts": np.asarray([r.start for r in rows], np.float32),
             "ends": np.asarray([r.end for r in rows], np.float32),
-            "rgb": rgb, "flow": flow, "audio": audio,
-            "caption_idx": caps,
+            "rgb": F.pad_stack([feats[i]["rgb"] for i in mine], vb),
+            "flow": F.pad_stack([feats[i]["flow"] for i in mine], vb),
+            "audio": F.pad_stack([feats[i]["audio"] for i in mine], ab),
+            "caption_idx": np.stack([self._encode_caption(
+                self.rows[i].tokens, cb) for i in mine]),
             "n_valid": n_valid,
         }
+        if self.mesh is not None and self.mesh.world > 1:
+            batch["global_idxs"] = idxs
+        return batch
 
     def batches(self, epoch: int, shuffle: bool = True,
                 drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:

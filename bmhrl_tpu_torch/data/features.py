@@ -35,40 +35,63 @@ def crop_a_segment(feature: np.ndarray, start: float, end: float,
     return None if len(feature) == 0 else feature
 
 
+def _cropped_stacks(video_features_path: str, audio_features_path: str,
+                    video_id: str, start: float, end: float,
+                    duration: float, read):
+    """The cropped (rgb, flow, audio) stacks of one request, each file
+    opened by ``read(path)``; None for a missing file or an empty crop (rgb
+    and flow are None together)."""
+    try:
+        rgb = read(os.path.join(video_features_path, f"{video_id}_rgb.npy"))
+        flow = read(os.path.join(video_features_path,
+                                 f"{video_id}_flow.npy"))
+        if rgb.shape != flow.shape:
+            raise ValueError(f"{video_id}: rgb {rgb.shape} and flow "
+                             f"{flow.shape} differ")
+        rgb = crop_a_segment(rgb, start, end, duration)
+        flow = crop_a_segment(flow, start, end, duration)
+        if rgb is None or flow is None:
+            rgb = flow = None
+    except FileNotFoundError:
+        rgb = flow = None
+    try:
+        audio = crop_a_segment(read(os.path.join(audio_features_path,
+                                                 f"{video_id}.npy")),
+                               start, end, duration)
+    except FileNotFoundError:
+        audio = None
+    return rgb, flow, audio
+
+
 def load_features_from_npy(video_features_path: str, audio_features_path: str,
                            video_id: str, start: float, end: float,
                            duration: float, d_vid: int = 1024,
                            d_aud: int = 128) -> Dict[str, np.ndarray]:
     """Load and crop the rgb/flow/audio stacks of one request; a missing
     file or an empty crop gives a zero (1, D) stack."""
-    out: Dict[str, np.ndarray] = {}
-    try:
-        rgb = np.load(os.path.join(video_features_path, f"{video_id}_rgb.npy"))
-        flow = np.load(os.path.join(video_features_path,
-                                    f"{video_id}_flow.npy"))
-        if rgb.shape != flow.shape:
-            raise ValueError(f"{video_id}: rgb {rgb.shape} and flow "
-                             f"{flow.shape} differ")
-        rgb = crop_a_segment(rgb.astype(np.float32), start, end, duration)
-        flow = crop_a_segment(flow.astype(np.float32), start, end, duration)
-        if rgb is None or flow is None:
-            rgb = flow = None
-    except FileNotFoundError:
-        rgb = flow = None
+    rgb, flow, audio = _cropped_stacks(
+        video_features_path, audio_features_path, video_id, start, end,
+        duration, lambda path: np.load(path).astype(np.float32))
     if rgb is None:
         rgb = fill_missing_features(d_vid)
         flow = fill_missing_features(d_vid)
-    out["rgb"], out["flow"] = rgb, flow
-
-    try:
-        audio = np.load(os.path.join(audio_features_path, f"{video_id}.npy"))
-        audio = crop_a_segment(audio.astype(np.float32), start, end, duration)
-    except FileNotFoundError:
-        audio = None
     if audio is None:
         audio = fill_missing_features(d_aud)
-    out["audio"] = audio
-    return out
+    return {"rgb": rgb, "flow": flow, "audio": audio}
+
+
+def feature_lengths(video_features_path: str, audio_features_path: str,
+                    video_id: str, start: float, end: float,
+                    duration: float) -> Tuple[int, int]:
+    """(video rows, audio rows) that ``load_features_from_npy`` gives for
+    one request: the same crops of memory-mapped files, no data read (a
+    data-parallel rank buckets the global batch without loading other
+    ranks' rows)."""
+    rgb, _, audio = _cropped_stacks(
+        video_features_path, audio_features_path, video_id, start, end,
+        duration, lambda path: np.load(path, mmap_mode="r"))
+    return (1 if rgb is None else len(rgb), 1 if audio is None
+            else len(audio))
 
 
 def pick_bucket(length: int, buckets) -> int:

@@ -39,12 +39,19 @@ class Draws:
     noise, dropout keep masks, exploration normals, the RL sample. Two
     ``Draws`` of one seed give the same streams, so a step that re-runs a
     forward repeats its dropout and noise. Generators live on ``device``. A
-    test subclasses it to feed chosen draws."""
+    test subclasses it to feed chosen draws.
+
+    With a data-parallel ``mesh`` a draw whose leading dim is this rank's
+    rows (dropout, synonym noise, the sample) is drawn at the global
+    batch's shape and this rank's rows are kept, so every rank holds its
+    rows of the one-process draw; the Manager's (d_goal,) normal is the
+    same on every rank."""
 
     STREAMS = ("synonym", "dropout", "noise", "sample")
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, mesh=None):
         self.device = torch.device(device)
+        self.mesh = mesh
         seeds = np.random.SeedSequence(seed).generate_state(len(self.STREAMS))
         self._gens = {name: torch.Generator(self.device).manual_seed(int(s))
                       for name, s in zip(self.STREAMS, seeds)}
@@ -53,9 +60,24 @@ class Draws:
         """fn(*args) (torch.rand, randn or randint) from ``stream``."""
         return fn(*args, generator=self._gens[stream], device=self.device)
 
+    def _world(self) -> int:
+        return 1 if self.mesh is None else self.mesh.world
+
+    def _global(self, shape) -> Tuple[int, ...]:
+        """The global batch's shape of a draw of this rank's rows."""
+        shape = tuple(shape)
+        return (shape[0] * self._world(),) + shape[1:]
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a draw at the global batch's shape."""
+        if self._world() == 1:
+            return x
+        return x[self.mesh.rows(x.shape[0])]
+
     def keep(self, shape, keep_prob: float) -> torch.Tensor:
         """Dropout keep mask: True with probability ``keep_prob``."""
-        return self._draw(torch.rand, "dropout", shape) < keep_prob
+        u = self._draw(torch.rand, "dropout", self._global(shape))
+        return self._local(u) < keep_prob
 
     def normal(self, shape) -> torch.Tensor:
         """Standard normals (f32) of the Manager's exploration noise."""
@@ -65,17 +87,18 @@ class Draws:
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(u1, u2, words) of ``synonym_noise``: two uniforms in [0, 1) and
         random words in [2, voc_size)."""
-        u1 = self._draw(torch.rand, "synonym", shape)
-        u2 = self._draw(torch.rand, "synonym", shape)
-        words = self._draw(torch.randint, "synonym", 2, voc_size,
-                           tuple(shape))
-        return u1, u2, words
+        g = self._global(shape)
+        u1 = self._draw(torch.rand, "synonym", g)
+        u2 = self._draw(torch.rand, "synonym", g)
+        words = self._draw(torch.randint, "synonym", 2, voc_size, g)
+        return self._local(u1), self._local(u2), self._local(words)
 
     def categorical(self, logp: torch.Tensor) -> torch.Tensor:
         """One sample per row of log-probabilities (..., V): Gumbel-max, as
         ``jax.random.categorical``."""
-        u = self._draw(torch.rand, "sample", logp.shape)
-        u = u.clamp_min_(torch.finfo(torch.float32).tiny)
+        u = self._local(self._draw(torch.rand, "sample",
+                                   self._global(logp.shape)))
+        u = u.clamp_min(torch.finfo(torch.float32).tiny)
         return torch.argmax(logp - torch.log(-torch.log(u)), dim=-1)
 
 

@@ -28,6 +28,7 @@ from bmhrl_tpu_torch.models.blocks import (Dense, Draws, PositionalEncoder,
                                            rounded)
 from bmhrl_tpu_torch.models.critic import SegmentCritic
 from bmhrl_tpu_torch.ops import attention as fused
+from bmhrl_tpu_torch.parallel import mesh as mesh_lib
 from bmhrl_tpu_torch.ops.segments import (expand_goals,
                                           frontier_exploration_noise,
                                           frontier_goal)
@@ -207,11 +208,14 @@ class Manager(nn.Module):
     """Goal emitter: f32 linear(d_caps -> d_goal) and dropout, optional
     exploration noise scaled by detached nan-statistics of the activations,
     then goal expansion over the segments (``forward``) or at the decode
-    frontier (``goal_step``, no noise)."""
+    frontier (``goal_step``, no noise). ``mesh``: the data-parallel mesh
+    whose global batch the expansion and the statistics take (None: the
+    rows given; ``parallel.mesh.replicate`` sets it)."""
 
     # the noise's mean and std are the activations' over these factors
     MEAN_FACTOR = 10.0
     STD_FACTOR = 5.0
+    mesh = None
 
     def __init__(self, d_model_caps: int, d_goal: int, device,
                  dout_p: float = 0.0):
@@ -221,7 +225,8 @@ class Manager(nn.Module):
         self.linear = Dense(d_model_caps, d_goal, torch.float32, device)
 
     def goal_step(self, mf_t, label_t, has_boundary):
-        return frontier_goal(self.linear(mf_t.float()), label_t, has_boundary)
+        return frontier_goal(self.linear(mf_t.float()), label_t, has_boundary,
+                             self.mesh)
 
     def forward(self, x, critic_mask, exploration: bool = False,
                 drop: Optional[Draws] = None,
@@ -233,12 +238,12 @@ class Manager(nn.Module):
         x = dropout(self.linear(x.float()), self.dout_p, drop)
         if exploration:
             xd = x.detach()
-            centre = torch.nanmean(xd)
+            centre = mesh_lib.global_nanmean(xd, self.mesh)
             mean = centre / self.MEAN_FACTOR
-            std = torch.sqrt(torch.nanmean((xd - centre).abs() ** 2)
-                             ) / self.STD_FACTOR
+            std = torch.sqrt(mesh_lib.global_nanmean(
+                (xd - centre).abs() ** 2, self.mesh)) / self.STD_FACTOR
             x = x + (noise.normal((self.d_goal,)) * std + mean - 0.5 * mean)
-        return expand_goals(x, critic_mask)
+        return expand_goals(x, critic_mask, self.mesh)
 
 
 class Worker(nn.Module):
@@ -314,7 +319,12 @@ class HierarchicalAgent(nn.Module):
       ``step_weights``, ``step_mem_pre`` and ``step_mem_post``;
     - ``decode_memories(Va, Av, masks)``: the memories the token step
       attends, in the order of ``step_mem_pre``'s effective queries, each
-      with its (B, S) int32 key mask."""
+      with its (B, S) int32 key mask.
+
+    ``mesh``: the data-parallel mesh (``parallel.mesh``) the decode loops
+    stop over and the Manager expands goals over (None: one process)."""
+
+    mesh = None
 
     @property
     def device(self) -> torch.device:
@@ -382,7 +392,7 @@ class HierarchicalAgent(nn.Module):
                                         state, crit_w)
         return score[:, 0], state
 
-    def decode_frontier(self, trg, labels, Va, Av, masks, t: int,
+    def decode_frontier(self, trg, labels, Va, Av, masks, t: torch.Tensor,
                         exploration: bool = False,
                         fusion_kv: Optional[Dict] = None,
                         draws: Optional[Draws] = None):
@@ -390,22 +400,26 @@ class HierarchicalAgent(nn.Module):
         critic's segment labels (B, L) (zero past t), under ``masks`` with
         the caption mask "C_mask": the fusion stacks run over the whole
         buffer, the Manager's linear, the goal query and the vocabulary
-        projection at position t only. With ``exploration`` the goal gets
+        projection at position t (a 0-d int64 tensor) only. With
+        ``exploration`` the goal gets
         the Manager's noise with statistics over positions <= t
         (``ops.segments.frontier_exploration_noise``, one normal draw from
         ``draws``)."""
         C = self.pos_enc_C(self.emb_C(trg)).to(self.dtype)
         worker_feat, manager_feat = self.fusion_features(C, Va, Av, masks,
                                                          None, fusion_kv)
-        x_t = self.manager.linear(manager_feat[:, t:t + 1].float())
+        at = t.reshape(1)
+        x_t = self.manager.linear(manager_feat.index_select(1, at).float())
         if exploration:
             x_t = x_t + frontier_exploration_noise(
                 self.manager.linear(manager_feat.float()), t,
                 self.manager.d_goal, draws, Manager.MEAN_FACTOR,
-                Manager.STD_FACTOR)
-        goal_t = frontier_goal(x_t, labels[:, t], labels.bool().any(dim=1))
-        return self.worker.frontier(worker_feat[:, t:t + 1], worker_feat,
-                                    goal_t, masks["C_mask"][:, t:t + 1])
+                Manager.STD_FACTOR, self.mesh)
+        goal_t = frontier_goal(x_t, labels.index_select(1, at)[:, 0],
+                               labels.bool().any(dim=1), self.mesh)
+        return self.worker.frontier(worker_feat.index_select(1, at),
+                                    worker_feat, goal_t,
+                                    masks["C_mask"].index_select(1, at))
 
     def init_decode_caches(self, B: int, L: int) -> Dict:
         """Per-row decode state: critic RNN state, per-stack per-layer

@@ -281,7 +281,10 @@ class DetrCaption(nn.Module):
     """The DETR captioner. Defaults are the flagship's (``build``): d_model
     1024, d_caps 300, d_goal 64, 4 heads, 3 encoder and decoder layers,
     ``n_time`` 3 temporal projections, feed-forward 2048, bf16 compute.
-    ``d_video``: the video feature width (I3D, 1024)."""
+    ``d_video``: the video feature width (I3D, 1024). ``mesh``: the
+    data-parallel mesh the decode loops stop over (None: one process)."""
+
+    mesh = None
 
     def __init__(self, voc_size: int, d_model: int = 1024,
                  d_model_caps: int = 300, d_goal: int = 64, nhead: int = 4,
@@ -466,7 +469,7 @@ class DetrCaption(nn.Module):
                 Va, self.pos_enc)
         return kv
 
-    def decode_frontier(self, trg, labels, Va, Av, masks, t: int,
+    def decode_frontier(self, trg, labels, Va, Av, masks, t: torch.Tensor,
                         exploration: bool = False,
                         fusion_kv: Optional[Dict] = None,
                         draws: Optional[Draws] = None):
@@ -477,7 +480,8 @@ class DetrCaption(nn.Module):
         trg = self._caption_input(trg)
         wf = self.caption_features(self.emb_C(trg), trg, Va, Av, masks,
                                    exploration, None, fusion_kv, draws)
-        return torch.log_softmax(self.linear(wf[:, t].float()), dim=-1)
+        wf_t = wf.index_select(1, t.reshape(1))[:, 0]
+        return torch.log_softmax(self.linear(wf_t.float()), dim=-1)
 
     # -- the fast decode (default path) ---------------------------------------
     @property

@@ -5,10 +5,14 @@ and at the decode frontier (serving), and per-segment sums.
 ``segment_mask`` is (B, L) {0, 1}; a 1 at position j marks the END of a
 segment covering (previous boundary, j]. The goal expansions reproduce the
 reference loop's cross-row finalisation quirks, so a row's goals depend on
-the other rows of its batch."""
+the other rows of its batch. With a data-parallel ``mesh`` the batch is
+the global one and "a later row", "row 0" and the statistics take every
+rank's rows (``parallel.mesh``); without one, the rows given."""
 from __future__ import annotations
 
 import torch
+
+from bmhrl_tpu_torch.parallel import mesh as mesh_lib
 
 
 def next_boundary(segment_mask: torch.Tensor) -> torch.Tensor:
@@ -20,14 +24,8 @@ def next_boundary(segment_mask: torch.Tensor) -> torch.Tensor:
     return idx.flip(1).cummin(1).values.flip(1)
 
 
-def _later_rows_have(has_boundary: torch.Tensor) -> torch.Tensor:
-    """later[b] = any(has_boundary[b+1:]). has_boundary: (B,) bool."""
-    hb = has_boundary.to(torch.int32)
-    suffix = hb.flip(0).cumsum(0).flip(0)  # inclusive suffix count
-    return (suffix - hb) > 0
-
-
-def expand_goals(x: torch.Tensor, segment_mask: torch.Tensor) -> torch.Tensor:
+def expand_goals(x: torch.Tensor, segment_mask: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
     """Broadcast each boundary's goal back over its segment, with the
     reference loop's finalisation (bmhrl_tpu/ops/segments.py
     ``expand_goals``). For a row b:
@@ -47,12 +45,11 @@ def expand_goals(x: torch.Tensor, segment_mask: torch.Tensor) -> torch.Tensor:
     gathered = torch.gather(x, 1, nb.clamp_max(L - 1)[:, :, None]
                             .expand(B, L, D))
     hb = m.any(dim=1)
-    later = _later_rows_have(hb)
+    later, any_hb = mesh_lib.row_flags(hb, mesh)
     zeros = torch.zeros_like(x)
     tail_val = torch.where(later[:, None, None], zeros, x)
     boundary_rows = torch.where((nb >= L)[:, :, None], tail_val, gathered)
-    row0_zeroed = ((~hb) & (torch.arange(B, device=x.device) == 0)
-                   & hb.any())
+    row0_zeroed = (~hb) & mesh_lib.first_row(B, x.device, mesh) & any_hb
     no_boundary_rows = torch.where(row0_zeroed[:, None, None], zeros, x)
     return torch.where(hb[:, None, None], boundary_rows, no_boundary_rows)
 
@@ -68,7 +65,7 @@ def segment_sum_expand(reward: torch.Tensor,
 
 
 def frontier_goal(x_t: torch.Tensor, label_t: torch.Tensor,
-                  has_boundary: torch.Tensor) -> torch.Tensor:
+                  has_boundary: torch.Tensor, mesh=None) -> torch.Tensor:
     """expand_goals at the single decode-frontier position t.
 
     ``x_t`` (B, 1, D) raw goals, ``label_t`` (B,) critic labels at t,
@@ -79,25 +76,28 @@ def frontier_goal(x_t: torch.Tensor, label_t: torch.Tensor,
     B = x_t.shape[0]
     hb = has_boundary.bool()
     lab = label_t.bool()
-    later = _later_rows_have(hb)
-    row0_zeroed = (torch.arange(B, device=x_t.device) == 0) & hb.any()
+    later, any_hb = mesh_lib.row_flags(hb, mesh)
+    row0_zeroed = mesh_lib.first_row(B, x_t.device, mesh) & any_hb
     keep_raw = lab | (hb & ~later) | (~hb & ~row0_zeroed)
     return torch.where(keep_raw[:, None, None], x_t, torch.zeros_like(x_t))
 
 
-def frontier_exploration_noise(x_full: torch.Tensor, t: int, d_goal: int,
+def frontier_exploration_noise(x_full: torch.Tensor, t, d_goal: int,
                                draws, mean_factor: float,
-                               std_factor: float) -> torch.Tensor:
-    """The Manager's exploration noise at the decode frontier t: one
-    (d_goal,) normal from ``draws`` (a ``blocks.Draws``), scaled by the
-    mean and the mean squared deviation of the goal-linear activations
-    x_full (B, L, d_goal) over positions <= t of every row (the growing
-    buffer's statistics; not ``Manager.forward``'s nan-statistics)."""
+                               std_factor: float, mesh=None) -> torch.Tensor:
+    """The Manager's exploration noise at the decode frontier t (an int or
+    a 0-d int64 tensor): one (d_goal,) normal from ``draws`` (a
+    ``blocks.Draws``), scaled by the mean and the mean squared deviation
+    of the goal-linear activations x_full (B, L, d_goal) over positions <=
+    t of every row (the growing buffer's statistics; not
+    ``Manager.forward``'s nan-statistics)."""
     valid = (torch.arange(x_full.shape[1], device=x_full.device)
              <= t)[None, :, None]
-    cnt = float((t + 1) * x_full.shape[0] * d_goal)
-    mean = (x_full * valid).sum() / cnt
-    var = ((x_full - mean) ** 2 * valid).sum() / cnt
+    cnt = (t + 1) * float(mesh_lib.global_numel(x_full[:, 0, 0], mesh)
+                          * d_goal)
+    mean = mesh_lib.global_sum((x_full * valid).sum(), mesh) / cnt
+    var = mesh_lib.global_sum(((x_full - mean) ** 2 * valid).sum(),
+                              mesh) / cnt
     mean = mean / mean_factor
     std = torch.sqrt(var) / std_factor
     return draws.normal((d_goal,)) * std + mean - 0.5 * mean

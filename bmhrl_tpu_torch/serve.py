@@ -15,8 +15,20 @@ sampled or beam-search captions.
   the encoder once per clip and O(1) positions per generated token.
 
 A server of exported programs (``serve_export.ExportedCaptionServer``)
-inherits the scheduling and IO. Multi-device serving is not ported yet.
-Results come back in the ANet submission format.
+inherits the scheduling and IO. Results come back in the ANet submission
+format.
+
+Data parallel (``mesh``, ``parallel.mesh``; every rank runs the server on
+the same requests): a batch of ``inference_batch_size`` (the global batch)
+is planned as on one device, then row-padded up to a multiple of the
+ranks exactly as the JAX server pads for its data axis, so a 1-request
+tail on 2 ranks decodes as 2 rows (and the zero row reaches row 0's goals
+through ``frontier_goal``, as on the JAX mesh). Rank r loads and decodes
+rows [r*b, (r+1)*b) of each batch (a clip's beams stay with it), the
+decode stops when every rank's rows are done, and the tokens come back to
+every rank in request order (``gather_rows``); the caller writes the
+submission on rank 0. The sampled server's draws are the global batch's,
+each rank keeping its rows. A bundle's server takes no mesh.
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ from bmhrl_tpu_torch.data.dataset import Prefetcher
 from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD
 from bmhrl_tpu_torch.models.blocks import Draws
 from bmhrl_tpu_torch.ops.masking import make_masks
+from bmhrl_tpu_torch.parallel import mesh as mesh_lib
 from bmhrl_tpu_torch.train.decode import beam_decode, decode, detokenize
 
 
@@ -180,7 +193,13 @@ def plan_batches(reqs: Sequence[ClipRequest], cfg: Config, batch_size: int
 
 def _load_batch(reqs: Sequence[ClipRequest], idxs: List[int], vb: int,
                 ab: int, cfg: Config, pad_to: int,
-                pool: ThreadPoolExecutor) -> Dict:
+                pool: ThreadPoolExecutor, rows: Optional[slice] = None
+                ) -> Dict:
+    """The batch of requests ``idxs`` row-padded with zero rows to
+    ``pad_to``; ``rows``: the rows of it to load (a rank's; all by
+    default). ``n_valid`` and ``idxs`` are the whole batch's."""
+    rows = rows or slice(0, pad_to)
+
     def load(i):
         r = reqs[i]
         return F.load_features_from_npy(
@@ -189,11 +208,13 @@ def _load_batch(reqs: Sequence[ClipRequest], idxs: List[int], vb: int,
             r.video_id, r.start, r.end, r.duration,
             d_vid=cfg.d_vid, d_aud=cfg.d_aud)
 
-    feats = list(pool.map(load, idxs))
+    feats = list(pool.map(load, idxs[rows]))
     n_valid = len(idxs)
-    while len(feats) < pad_to:  # row-pad the tail batch with zero rows
-        feats.append({k: np.zeros((1, v.shape[1]), np.float32)
-                      for k, v in feats[0].items()})
+    zero = {"rgb": np.zeros((1, cfg.d_vid), np.float32),
+            "flow": np.zeros((1, cfg.d_vid), np.float32),
+            "audio": np.zeros((1, cfg.d_aud), np.float32)}
+    while len(feats) < rows.stop - rows.start:  # row-pad with zero rows
+        feats.append(zero)
     return {
         "rgb": F.pad_stack([f["rgb"] for f in feats], vb),
         "flow": F.pad_stack([f["flow"] for f in feats], vb),
@@ -209,14 +230,19 @@ class CaptionServer:
     ``device`` (the model's device): greedily by default, by beam search
     with ``beam_width`` > 1 (``length_penalty``: GNMT normalisation), or by
     sampling with ``sample`` (``temperature``, ``top_k``, ``top_p``; draws
-    from ``sample_seed``)."""
+    from ``sample_seed``). ``mesh``: the data-parallel mesh this rank
+    serves in (the model's parameters are broadcast from rank 0)."""
 
     def __init__(self, cfg: Config, model, itos: List[str], device="cuda",
                  beam_width: int = 1, length_penalty: float = 0.0,
                  sample: bool = False, temperature: float = 1.0,
-                 top_k: int = 0, top_p: float = 0.0, sample_seed: int = 0):
+                 top_k: int = 0, top_p: float = 0.0, sample_seed: int = 0,
+                 mesh=None):
         self.cfg = cfg
         self.model = model
+        self.mesh = mesh
+        if model is not None:
+            mesh_lib.replicate(model, mesh)
         self.itos = itos
         self.device = resolve_device(device)
         if model is not None and model.device != self.device:
@@ -242,10 +268,16 @@ class CaptionServer:
                                  f"{len(itos)}-word vocabulary")
             if not 0.0 <= self.top_p <= 1.0:
                 raise ValueError(f"top_p={self.top_p} must be in [0, 1]")
-            self._draws = Draws(sample_seed, self.device)
+            self._draws = Draws(sample_seed, self.device, mesh)
         # a server of exported programs (serve_export) runs fixed batch
         # shapes: tails pad to the full batch size
         self._fixed_batch = False
+
+    def _mesh_pad(self, b: int) -> int:
+        """b rounded up to a multiple of the ranks (the JAX server's
+        padding for its data axis)."""
+        n = 1 if self.mesh is None else self.mesh.world
+        return ((b + n - 1) // n) * n
 
     def _decode(self, feats: Dict, masks_src: Dict):
         """One batch -> token ids (B, max_len+1). Overridden by the server of
@@ -277,23 +309,28 @@ class CaptionServer:
                 for idxs, vb, ab in plan:
                     # tails round up to the next power of two (to the full
                     # batch for fixed batch shapes)
-                    pad_to = (bs if len(idxs) == bs or self._fixed_batch
-                              else min(bs, 1 << (len(idxs) - 1).bit_length()))
-                    yield _load_batch(reqs, idxs, vb, ab, cfg, pad_to, pool)
+                    pad_to = self._mesh_pad(
+                        bs if len(idxs) == bs or self._fixed_batch
+                        else min(bs, 1 << (len(idxs) - 1).bit_length()))
+                    rows = (None if self.mesh is None
+                            else self.mesh.rows(pad_to))
+                    yield _load_batch(reqs, idxs, vb, ab, cfg, pad_to, pool,
+                                      rows)
 
             t0 = time.perf_counter()
             for batch in Prefetcher(batch_iter(), 2, self.device):
                 bt0 = time.perf_counter()
                 feats = {k: batch[k] for k in ("rgb", "flow", "audio")}
-                tokens = self._decode(feats, make_masks(feats))
+                tokens = mesh_lib.gather_rows(
+                    self._decode(feats, make_masks(feats)), self.mesh)
                 toks = tokens[: batch["n_valid"]].cpu().numpy()
                 for i, sent in zip(batch["idxs"], detokenize(toks, self.itos)):
                     sentences[i] = sent
                 stats.batches += 1
                 stats.clips += batch["n_valid"]
-                stats.padded_rows += feats["rgb"].shape[0] - batch["n_valid"]
+                stats.padded_rows += tokens.shape[0] - batch["n_valid"]
                 stats.batch_latency_s.append(time.perf_counter() - bt0)
-                shapes_seen.add((feats["rgb"].shape[0], feats["rgb"].shape[1],
+                shapes_seen.add((tokens.shape[0], feats["rgb"].shape[1],
                                  feats["audio"].shape[1]))
             stats.wall_s = time.perf_counter() - t0
         stats.compiles = len(shapes_seen)

@@ -15,6 +15,12 @@ within one side of the flash gate (dynamic lengths):
   mutation), so after a beam's parent gather it writes into the gathered
   tensors.
 
+A model without a fast loop (the DETR's ``pre_goal_attention`` path)
+exports the full-buffer loop's start and step instead
+(``train.decode.full_state``/``full_step``: the token buffer and the
+critic's labels are per-row state written in place, the memories repeated
+per beam), which the same host loops drive.
+
 The loop over positions stays on the host: ``train/decode.py``'s fast
 greedy and beam loops (argmax, or beam search's candidates, parent gather
 and final pick) with one ``done.all()`` sync per token. (JAX bakes the whole loop into its
@@ -62,7 +68,8 @@ from bmhrl_tpu_torch.models.blocks import (_cudnn_without_tf32,
 from bmhrl_tpu_torch.ops.attention import MIN_SK
 from bmhrl_tpu_torch.ops.masking import make_masks
 from bmhrl_tpu_torch.serve import CaptionServer
-from bmhrl_tpu_torch.train.decode import _beam_fast_loop, _fast_loop
+from bmhrl_tpu_torch.train.decode import (_beam_fast_loop, _fast_loop,
+                                          full_state, full_step)
 from bmhrl_tpu_torch.weights import flax_keys, jax_layout_params
 
 FORMAT = "bmhrl_tpu_torch/torch.export/1"
@@ -187,13 +194,23 @@ class _Program(nn.Module):
         return torch.func.functional_call(self._bound, swap, tuple(inputs))
 
 
-def _setup(model, rgb, flow, audio, rows: int, L: int):
+def _setup(model, rgb, flow, audio, W: int, L: int):
     """The decode's start (``train.decode.decode`` up to its loop): masks,
-    encoder, ``fast_state`` for ``rows`` rows."""
+    encoder, ``fast_state`` (or ``full_state``) for B x W rows."""
     feats = {"rgb": rgb, "flow": flow, "audio": audio}
     masks = make_masks(feats)
     Va, Av = model.encode(rgb + flow, audio, masks)
-    return model.fast_state(Va, Av, masks, rows, L)
+    rows = rgb.shape[0] * W
+    if model.has_fast_loop:
+        return model.fast_state(Va, Av, masks, rows, L)
+    return full_state(model, Va, Av, masks, rows, L, W)
+
+
+def _step(model, tok_t, t, caches, valid, inv, W: int):
+    """One token of the loop ``_setup`` started: (log-probs, caches)."""
+    if model.has_fast_loop:
+        return model.fast_step(tok_t, t, caches, valid, inv, W)
+    return full_step(model, tok_t, t, caches, valid, inv)
 
 
 def _table_spec(model: nn.Module, name: str) -> List:
@@ -268,17 +285,11 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
     ``params.npz``. Shapes of one ``_groups`` group share one pair of
     programs whose video and audio lengths are dynamic between the group's
     ends. Exports on the model's device, the platform the bundle serves
-    on. Takes every family with a fast loop (BMHRL, AHRL/VHRL, the DETR's
-    default path); the DETR's ``pre_goal_attention`` path has only the
-    full-buffer loop and is refused. Returns the manifest."""
+    on. Takes every family: the fast loop's step where the model has one,
+    the full-buffer step for the DETR's ``pre_goal_attention`` path.
+    Returns the manifest."""
     if not shapes:
         raise ValueError("export_decode_bundle: no shapes requested")
-    if not model.has_fast_loop:
-        raise ValueError(
-            "export_decode_bundle: this model has no fast decode loop (the "
-            "DETR's pre_goal_attention path decodes on the full buffer "
-            "only), so it has no step to export; serve it live with "
-            "CaptionServer")
     os.makedirs(out_dir, exist_ok=True)
     model = model.eval()
     dev = model.device
@@ -300,14 +311,14 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
                  torch.zeros(B, vb, cfg.d_vid, device=dev),
                  torch.zeros(B, ab, cfg.d_aud, device=dev)]
         with _Uses(names) as setup_uses:
-            caches, valid, inv = _setup(model, *feats, B * W, L)
+            caches, valid, inv = _setup(model, *feats, W, L)
         state: List[torch.Tensor] = []
         inv_leaves: List[torch.Tensor] = []
         skels = (_split(caches, state), _split(inv, inv_leaves))
         tok = torch.full((B * W,), BOS, dtype=torch.int64, device=dev)
         t0 = torch.zeros((), dtype=torch.int64, device=dev)
         with _Uses(names) as step_uses:
-            _, new = model.fast_step(tok, t0, caches, valid, inv, W)
+            _, new = _step(model, tok, t0, caches, valid, inv, W)
         new_leaves: List[torch.Tensor] = []
         _split(new, new_leaves)
         carried = [i for i, (a, b) in enumerate(zip(state, new_leaves))
@@ -338,7 +349,7 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
             ends[a0, a1] = adim
 
         def setup_fn(m, rgb, flow, audio):
-            c, v, i = _setup(m, rgb, flow, audio, B * W, L)
+            c, v, i = _setup(m, rgb, flow, audio, W, L)
             leaves: List[torch.Tensor] = []
             _split(c, leaves)
             inv_out: List[torch.Tensor] = []
@@ -348,7 +359,7 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
         def step_fn(m, tok_t, t, valid_t, *rest):
             c = _join(state_skel, iter(rest[:n_state]))
             i = _join(inv_skel, iter(rest[n_state:]))
-            logits, c_new = m.fast_step(tok_t, t, c, valid_t, i, W)
+            logits, c_new = _step(m, tok_t, t, c, valid_t, i, W)
             leaves: List[torch.Tensor] = []
             _split(c_new, leaves)
             return logits, [leaves[j] for j in carried]

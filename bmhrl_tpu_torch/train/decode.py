@@ -23,13 +23,18 @@ runs both fusion stacks over the whole caption buffer every token, with the
 memories' cross-attention keys/values projected once per call, and the
 heads at the frontier only (``decode_frontier``). It is the
 loop of ``decode(exploration=True)``: the Manager's exploration noise
-needs the statistics of the whole buffer.
+needs the statistics of the whole buffer. Its start and step
+(``full_state``, ``full_step``) have the fast loop's form, the buffer and
+the critic's labels in the per-row state, so one host loop drives both and
+``serve_export`` exports either.
 
 Both loops are host loops over positions that stop once every row has
-emitted </s> (one device sync per token). The fast step takes its position
+emitted </s> (one device sync per token). The step takes its position
 as a 0-d int64 tensor on the device, a view of one ``torch.arange`` made
 per decode, so the step is one function of tensors (``serve_export``
-exports it). Randomness comes from a
+exports it). With a data-parallel mesh (the model's ``mesh``) the stop is
+global: one all_reduce of the unfinished rows per token before that sync,
+so every rank runs the same steps. Randomness comes from a
 ``blocks.Draws``: one (B, V) uniform of its "sample" stream per sampled
 step, one (d_goal,) normal of its "noise" stream per exploring step.
 
@@ -42,9 +47,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from bmhrl_tpu_torch.data.vocab import EOS, SPECIALS
+from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD, SPECIALS
 from bmhrl_tpu_torch.models.blocks import Draws
 from bmhrl_tpu_torch.ops.masking import c_mask
+from bmhrl_tpu_torch.parallel import mesh as mesh_lib
 
 NEG_INF = -1e9
 
@@ -99,11 +105,12 @@ def _start(B: int, L: int, start_idx: int, pad_idx: int, dev):
 
 def _fast_loop(caches, valid, step_fn, B: int, max_len: int, start_idx: int,
                end_idx: int, pad_idx: int, greedy: bool,
-               draws: Optional[Draws], sample_args):
-    """The fast loop over positions from its start (``fast_setup``'s
-    caches, validity buffer and step; the exported programs' in
-    ``serve_export``): one step a token, the position a view of one
-    ``torch.arange``, one host sync a token."""
+               draws: Optional[Draws], sample_args, mesh=None):
+    """The host loop over positions from a start (``fast_setup``'s or
+    ``full_state``'s caches, validity buffer and step; the exported
+    programs' in ``serve_export``): one step a token, the position a view
+    of one ``torch.arange``, one host sync a token (``mesh``: the stop
+    over every rank's rows)."""
     dev = valid.device
     trg, probs, done = _start(B, max_len + 1, start_idx, pad_idx, dev)
     positions = torch.arange(max_len, device=dev)
@@ -118,7 +125,7 @@ def _fast_loop(caches, valid, step_fn, B: int, max_len: int, start_idx: int,
         # filter only shapes the proposal
         probs[:, t + 1] = logits_t.gather(1, nxt[:, None])[:, 0].exp()
         done |= nxt == end_idx
-        if bool(done.all()):
+        if mesh_lib.all_done(done, mesh):
             break
     return trg, probs
 
@@ -129,23 +136,69 @@ def _decode_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
     caches, valid, step_fn = model.fast_setup(Va, Av, masks_src, B,
                                               max_len + 1)
     return _fast_loop(caches, valid, step_fn, B, max_len, start_idx, end_idx,
-                      pad_idx, greedy, draws, sample_args)
+                      pad_idx, greedy, draws, sample_args, model.mesh)
 
 
-def full_buffer_step(model, trg, labels, t: int, crit, crit_w, Va, Av,
-                     masks_src, fusion_kv, pad_idx: int,
+def full_buffer_step(model, trg, labels, t: torch.Tensor, crit, crit_w, Va,
+                     Av, masks_src, fusion_kv, pad_idx: int,
                      exploration: bool = False,
                      draws: Optional[Draws] = None):
-    """One step of the full-buffer loop: advance the critic with token t
-    of the buffer trg (B, L), write its segment label into ``labels`` (in
-    place), then the log-probs (B, V) at t (``decode_frontier``). Returns
-    (log-probs, critic state)."""
-    score_t, crit = model.critic_step(trg[:, t], crit, crit_w)
-    labels[:, t] = (torch.sigmoid(score_t)
-                    > model.critic_score_threshold).to(torch.int32)
+    """One step of the full-buffer loop at position t (a 0-d int64
+    tensor): advance the critic with token t of the buffer trg (B, L),
+    write its segment label into ``labels`` (in place), then the log-probs
+    (B, V) at t (``decode_frontier``). Returns (log-probs, critic state)."""
+    at = t.reshape(1)
+    score_t, crit = model.critic_step(trg.index_select(1, at)[:, 0], crit,
+                                      crit_w)
+    labels.index_copy_(1, at, (torch.sigmoid(score_t)
+                               > model.critic_score_threshold).to(
+                                   torch.int32)[:, None])
     masks = dict(masks_src, C_mask=c_mask(trg, pad_idx))
     return model.decode_frontier(trg, labels, Va, Av, masks, t, exploration,
                                  fusion_kv, draws), crit
+
+
+def full_state(model, Va, Av, masks_src, B: int, L: int,
+               beam_share: int = 1, start_idx: int = BOS,
+               pad_idx: int = PAD):
+    """The full-buffer loop's start in ``fast_state``'s form: (caches0,
+    valid0, inv) for B rows. ``caches0``: the token buffer (B, L) (PAD
+    after ``start_idx``), the critic's labels (B, L) and its state, all
+    per row; ``inv``: the critic's packed cells, the memories and masks
+    (repeated per beam when ``beam_share`` = W > 1: B counts clips x W
+    rows) and their projected keys/values."""
+    W = beam_share
+    if W > 1:
+        Va, Av = Va.repeat_interleave(W, 0), Av.repeat_interleave(W, 0)
+        masks_src = {k: v.repeat_interleave(W, 0)
+                     for k, v in masks_src.items()}
+    trg, _, _ = _start(B, L, start_idx, pad_idx, Va.device)
+    caches = {"trg": trg,
+              "labels": torch.zeros(B, L, dtype=torch.int32,
+                                    device=Va.device),
+              "crit": model.critic_init_state(B)}
+    inv = {"crit_w": model.critic_step_weights(), "Va": Va, "Av": Av,
+           "masks": masks_src, "kv": model.precompute_fusion_kv(Va, Av)}
+    valid0 = torch.zeros(B, L, dtype=torch.bool, device=Va.device)
+    valid0[:, 0] = True
+    return caches, valid0, inv
+
+
+def full_step(model, tok_t, t: torch.Tensor, caches, valid, inv,
+              pad_idx: int = PAD, exploration: bool = False,
+              draws: Optional[Draws] = None):
+    """One token of the full-buffer loop in ``fast_step``'s form: write
+    tok_t (B,) at position t of the state's buffer, then
+    ``full_buffer_step`` (buffer and labels written in place; the critic
+    state comes back new). ``valid`` is not read: the buffer's PAD masks
+    itself. Returns (log-probs (B, V), caches)."""
+    trg = caches["trg"]
+    trg.index_copy_(1, t.reshape(1), tok_t[:, None])
+    logits, crit = full_buffer_step(
+        model, trg, caches["labels"], t, caches["crit"], inv["crit_w"],
+        inv["Va"], inv["Av"], inv["masks"], inv["kv"], pad_idx,
+        exploration, draws)
+    return logits, dict(caches, crit=crit)
 
 
 def _decode_loop(model, Va, Av, masks_src, B: int, max_len: int,
@@ -153,23 +206,15 @@ def _decode_loop(model, Va, Av, masks_src, B: int, max_len: int,
                  draws: Optional[Draws], exploration: bool, sample_args):
     """The full-buffer loop: the critic advanced one token per step, the
     fusion stacks over the whole buffer, the heads at the frontier."""
-    L = max_len + 1
-    trg, probs, done = _start(B, L, start_idx, pad_idx, Va.device)
-    labels = torch.zeros(B, L, dtype=torch.int32, device=Va.device)
-    crit_w = model.critic_step_weights()
-    crit = model.critic_init_state(B)
-    fusion_kv = model.precompute_fusion_kv(Va, Av)
-    for t in range(max_len):
-        logits_t, crit = full_buffer_step(model, trg, labels, t, crit, crit_w,
-                                          Va, Av, masks_src, fusion_kv,
-                                          pad_idx, exploration, draws)
-        nxt = _pick(logits_t, greedy, draws, sample_args)
-        trg[:, t + 1] = nxt
-        probs[:, t + 1] = logits_t.gather(1, nxt[:, None])[:, 0].exp()
-        done |= nxt == end_idx
-        if bool(done.all()):
-            break
-    return trg, probs
+    caches, valid, inv = full_state(model, Va, Av, masks_src, B,
+                                    max_len + 1, 1, start_idx, pad_idx)
+
+    def step_fn(tok_t, t, caches, valid):
+        return full_step(model, tok_t, t, caches, valid, inv, pad_idx,
+                         exploration, draws)
+
+    return _fast_loop(caches, valid, step_fn, B, max_len, start_idx, end_idx,
+                      pad_idx, greedy, draws, sample_args, model.mesh)
 
 
 @torch.no_grad()
@@ -193,7 +238,7 @@ def decode(model, feats: Dict[str, torch.Tensor],
     A = feats["audio"]
     Va, Av = model.encode(V, A, masks_src)
     if draws is None and (exploration or not greedy):
-        draws = Draws(0, Va.device)
+        draws = Draws(0, Va.device, model.mesh)
     if use_fast is None:
         use_fast = not exploration
     args = (model, Va, Av, masks_src, V.shape[0], max_len, start_idx,
@@ -247,7 +292,7 @@ def _beam_pick(trg, scores, lengths, B: int, W: int, length_penalty: float):
 
 def _beam_fast_loop(caches, valid, step_fn, B: int, W: int, max_len: int,
                     start_idx: int, end_idx: int, pad_idx: int,
-                    length_penalty: float):
+                    length_penalty: float, mesh=None):
     """Beam search over the incremental step from its start (B x W rows):
     every per-row cache (KV, critic state, goal buffer, boundary flag,
     validity) gathered by parent beam each step; memories at clip level,
@@ -270,7 +315,7 @@ def _beam_fast_loop(caches, valid, step_fn, B: int, W: int, max_len: int,
         caches = _gather(caches, parent)
         lengths = lengths[parent] + (~prev_done).long()
         done = prev_done | (token == end_idx)
-        if bool(done.all()):
+        if mesh_lib.all_done(done, mesh):
             break
     return _beam_pick(trg, scores, lengths, B, W, length_penalty)
 
@@ -281,7 +326,7 @@ def _beam_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
     caches, valid, step_fn = model.fast_setup(Va, Av, masks_src, B * W,
                                               max_len + 1, beam_share=W)
     return _beam_fast_loop(caches, valid, step_fn, B, W, max_len, start_idx,
-                           end_idx, pad_idx, length_penalty)
+                           end_idx, pad_idx, length_penalty, model.mesh)
 
 
 def _beam_loop_full(model, Va, Av, masks_src, B: int, max_len: int,
@@ -289,31 +334,14 @@ def _beam_loop_full(model, Va, Av, masks_src, B: int, max_len: int,
                     length_penalty: float):
     """Beam search over the full-buffer step, memories repeated per beam;
     the buffer, the labels and the critic state gathered by parent."""
-    L = max_len + 1
-    BW = B * W
-    Va, Av = Va.repeat_interleave(W, 0), Av.repeat_interleave(W, 0)
-    masks = {k: v.repeat_interleave(W, 0) for k, v in masks_src.items()}
-    trg, done, scores, lengths = _beam_start(B, W, L, start_idx, pad_idx,
-                                             Va.device)
-    labels = torch.zeros(BW, L, dtype=torch.int32, device=Va.device)
-    crit_w = model.critic_step_weights()
-    crit = model.critic_init_state(BW)
-    fusion_kv = model.precompute_fusion_kv(Va, Av)
-    for t in range(max_len):
-        logits_t, crit = full_buffer_step(model, trg, labels, t, crit, crit_w,
-                                          Va, Av, masks, fusion_kv, pad_idx)
-        parent, token, scores = _beam_step(logits_t, scores, done, B, W,
-                                           pad_idx)
-        prev_done = done[parent]
-        trg = trg[parent]
-        trg[:, t + 1] = token
-        labels = labels[parent]
-        crit = _gather(crit, parent)
-        lengths = lengths[parent] + (~prev_done).long()
-        done = prev_done | (token == end_idx)
-        if bool(done.all()):
-            break
-    return _beam_pick(trg, scores, lengths, B, W, length_penalty)
+    caches, valid, inv = full_state(model, Va, Av, masks_src, B * W,
+                                    max_len + 1, W, start_idx, pad_idx)
+
+    def step_fn(tok_t, t, caches, valid):
+        return full_step(model, tok_t, t, caches, valid, inv, pad_idx)
+
+    return _beam_fast_loop(caches, valid, step_fn, B, W, max_len, start_idx,
+                           end_idx, pad_idx, length_penalty, model.mesh)
 
 
 @torch.no_grad()

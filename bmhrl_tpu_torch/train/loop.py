@@ -21,6 +21,15 @@ the host score's fetch is a step's one wait for the card.
 Each step's random draws come from a seed derived from ``cfg.seed``, the
 epoch and the step index (``step_seed``); ``rl_update`` gets its rollout's
 seed, since it re-runs that forward.
+
+Data parallel (``mesh``, ``parallel.mesh``): every rank runs this loop on
+its rows of each global batch (the dataset shards them), with replicated
+modules (broadcast from rank 0) and steps whose updates are the global
+batch's. The host scores and the DETR's matching run on the rank's rows.
+Rank 0 logs, writes the validation submission, scores METEOR (over every
+rank's predictions, gathered) and the checkpoints; the metrics, the LR
+schedule and the early stop take the same values on every rank, and an
+auto-resume loads rank 0's choice of checkpoint everywhere.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import torch
 from bmhrl_tpu_torch import resolve_device
 from bmhrl_tpu_torch.config import Config
 from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD
+from bmhrl_tpu_torch.parallel import mesh as mesh_lib
 
 def build_model(cfg: Config, voc_size: int, device="cuda"):
     """The captioner of ``cfg.mode`` on ``device``, its parameters as the
@@ -105,6 +115,8 @@ def eval_model(cfg: Config, sf, state, dataset, epoch: int, logger,
     if max_batches is None:
         max_batches = cfg.eval_max_batches
     model = sf.model
+    mesh = sf.mesh
+    main = mesh is None or mesh.is_main
     predictions = {"version": "VERSION 1.0",
                    "external_data": {"used": True, "details": ""},
                    "results": {}}
@@ -124,13 +136,20 @@ def eval_model(cfg: Config, sf, state, dataset, epoch: int, logger,
         else:
             tokens, _ = decode(model, feats, masks_src, cfg.max_len, BOS,
                                EOS, PAD, greedy=True)
-        sentences = detokenize(tokens[: batch["n_valid"]].cpu().numpy(),
-                               itos)
-        for vid, s, e, sent in zip(batch["video_ids"], batch["starts"],
-                                   batch["ends"], sentences):
+        if "global_idxs" in batch:  # a rank's rows: every rank's, in order
+            rows = [dataset.rows[i] for i in batch["global_idxs"]]
+            tokens = mesh_lib.gather_rows(tokens, mesh)[: len(rows)]
+            meta = [(r.video_id, r.start, r.end) for r in rows]
+        else:
+            tokens = tokens[: batch["n_valid"]]
+            meta = zip(batch["video_ids"], batch["starts"], batch["ends"])
+        sentences = detokenize(tokens.cpu().numpy(), itos)
+        for (vid, s, e), sent in zip(meta, sentences):
             seg = {"sentence": sent, "timestamp": [float(s), float(e)]}
             predictions["results"].setdefault(vid, []).append(seg)
 
+    if not main:
+        return mesh.broadcast_object(None)
     if cfg.log_path is not None:
         os.makedirs(cfg.log_path, exist_ok=True)
         sub_path = os.path.join(
@@ -153,6 +172,8 @@ def eval_model(cfg: Config, sf, state, dataset, epoch: int, logger,
             if m in avg:
                 logger.add_scalar(f"{dataset.phase}/{m.lower()}",
                                   avg[m] * 100, epoch)
+    if mesh is not None and mesh.world > 1:
+        avg = mesh.broadcast_object(avg)
     return avg
 
 
@@ -211,14 +232,14 @@ def _init_seed(seed: int, part: int) -> int:
     return int(np.random.SeedSequence([seed, part]).generate_state(1)[0])
 
 
-def make_step_factory(cfg: Config, vocab, device):
+def make_step_factory(cfg: Config, vocab, device, mesh=None):
     """The captioner of ``cfg.mode`` and its two value nets on ``device``,
     initialised as flax initialises them from seeds derived from
     ``cfg.seed``, the embedding from GloVe where the vocabulary has vectors
     (then frozen unless ``cfg.unfreeze_word_emb``), the pretrained critic
     where ``cfg.rl_critic_path`` exists and the captioner has a critic;
     their ``StepFactory`` (``DetrStepFactory`` for DETR) and its initial
-    state."""
+    state. ``mesh``: the modules are replicated from rank 0 over it."""
     from bmhrl_tpu_torch.models.bmhrl import (BMManagerValueFunction,
                                               BMWorkerValueFunction)
     from bmhrl_tpu_torch.train.steps import StepFactory
@@ -242,10 +263,16 @@ def make_step_factory(cfg: Config, vocab, device):
             and hasattr(model, "critic")):
         install_critic(model, cfg.rl_critic_path)
         log_stderr(f"loaded critic: {cfg.rl_critic_path}")
+    for net in (model, wv_model, mv_model):
+        mesh_lib.replicate(net, mesh)
     factory = DetrStepFactory if cfg.mode == "DETR" else StepFactory
     sf = factory(cfg, model, wv_model, mv_model,
-                 (not glove_loaded) or cfg.unfreeze_word_emb)
+                 (not glove_loaded) or cfg.unfreeze_word_emb, mesh=mesh)
     return sf, sf.init_state()
+
+
+def _quiet(msg: str) -> None:
+    """The log line of a rank other than 0: dropped."""
 
 
 def _launch_counts() -> Dict[str, int]:
@@ -255,27 +282,32 @@ def _launch_counts() -> Dict[str, int]:
 
 
 def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
-                 device="cuda") -> Dict:
+                 device="cuda", mesh=None) -> Dict:
     """The whole training procedure on ``device``. Returns, for
     ``cfg.mode == "eval"``, the metrics of each validation phase; for
     "verbose", the ``analyze_batch`` record of each batch of epoch 0 (up to
     ``max_steps_per_epoch``); else
     ``{"best_metric", "state", "start_epoch", "step_factory", "epochs"}``:
     ``epochs`` holds one record per trained epoch (phase, lr, steps, mean
-    loss, seconds, the ``StepTimer`` summary, the kernel launches, the
-    scorer's path)."""
+    loss, each step's loss, seconds, the ``StepTimer`` summary, the kernel
+    launches, the collectives, the scorer's path). ``mesh``: this rank's
+    data-parallel mesh (``device`` is then the mesh's)."""
     from bmhrl_tpu_torch.data.dataset import CaptioningDataset, Prefetcher
     from bmhrl_tpu_torch.train.rewards import make_scorer
     from bmhrl_tpu_torch.utils.checkpoint import (load_checkpoint,
-                                                  save_checkpoint)
+                                                  save_checkpoint_on_main)
     from bmhrl_tpu_torch.utils.logging import ScalarLogger, log_stderr
     from bmhrl_tpu_torch.utils.profiling import StepTimer
 
-    device = resolve_device(device)
+    device = resolve_device(device if mesh is None else mesh.device)
+    main = mesh is None or mesh.is_main
     if cfg.debug_nans:
         torch.autograd.set_detect_anomaly(True)
+    if cfg.mode == "verbose" and mesh is not None and mesh.world > 1:
+        raise ValueError("--mode verbose analyses batches in one process: "
+                         "run it with one data-parallel rank")
 
-    train_ds = CaptioningDataset(cfg, "train")
+    train_ds = CaptioningDataset(cfg, "train", mesh=mesh)
     val_datasets: List = []
     metas = {"val_1": cfg.val_1_meta_path, "vatex_val": cfg.vatex_meta_path,
              "msrvtt_val": cfg.msrvtt_meta_path}
@@ -283,17 +315,19 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
         try:
             if os.path.exists(meta) and reference_json_for(cfg, phase):
                 val_datasets.append(
-                    CaptioningDataset(cfg, phase, vocab=train_ds.train_vocab))
+                    CaptioningDataset(cfg, phase, vocab=train_ds.train_vocab,
+                                      mesh=mesh))
         except Exception as e:  # missing assets are non-fatal (subset runs)
             log_stderr(f"skipping {phase}: {e}")
     # predicted proposals, evaluated in eval mode only
     if (cfg.mode == "eval" and cfg.val_prop_meta_path
             and os.path.exists(cfg.val_prop_meta_path)):
         val_datasets.append(CaptioningDataset(cfg, "learned_props",
-                                              vocab=train_ds.train_vocab))
+                                              vocab=train_ds.train_vocab,
+                                              mesh=mesh))
 
     vocab = train_ds.train_vocab
-    sf, state = make_step_factory(cfg, vocab, device)
+    sf, state = make_step_factory(cfg, vocab, device, mesh)
     model, wv_model, mv_model = sf.model, sf.wv_model, sf.mv_model
     scorer = make_scorer(cfg.scorer, vocab.itos,
                          getattr(vocab, "token_lists", []),
@@ -306,7 +340,9 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
         log_stderr(f"restored from {cfg.rl_pretrained_model_dir}")
     elif cfg.auto_resume:
         # the data order is epoch-seeded, so the stream resumes as it was
-        found = find_latest_checkpoint(cfg.log_dir)
+        found = find_latest_checkpoint(cfg.log_dir) if main else None
+        if mesh is not None and mesh.world > 1:
+            found = mesh.broadcast_object(found)
         if found is not None:
             ckpt_dir, ckpt_epoch = found
             state = load_checkpoint(ckpt_dir, model, wv_model, mv_model,
@@ -318,9 +354,13 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
             log_stderr("auto-resume: no prior checkpoint found; starting "
                        "fresh")
 
+    if not main:  # rank 0 logs
+        log_stderr = _quiet  # noqa: F811
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"Total Number of Parameters: {n_params / 1e6:.2f} Mil.")
-    logger = ScalarLogger(cfg.log_path, f"_{cfg.mode}_{cfg.scorer}")
+    if main:
+        print(f"Total Number of Parameters: {n_params / 1e6:.2f} Mil.")
+    logger = ScalarLogger(cfg.log_path if main else None,
+                          f"_{cfg.mode}_{cfg.scorer}")
     logger.add_scalar("debug/param_number", n_params, 0)
 
     if cfg.mode == "eval":
@@ -361,7 +401,7 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
     lr_scale = 1.0
     timer = StepTimer()
     profiler = None
-    if cfg.profile_dir:  # the first epoch
+    if cfg.profile_dir and main:  # the first epoch
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + (
@@ -382,6 +422,7 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
         phase_name = ("detr" if is_detr else "warmstart" if is_warmstart
                       else "worker" if train_worker else "manager")
         launches0 = _launch_counts()
+        collectives0 = dict(mesh_lib.COLLECTIVES)
 
         def process(item):
             """Score the pending batch on the host, then dispatch its
@@ -489,6 +530,8 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
                     n_steps += 1
             if pending is not None:
                 process(pending)
+            step_losses = (torch.stack(loss_terms).tolist()
+                           if loss_terms else [])
             epoch_loss = (float(torch.stack(loss_terms).sum())
                           if loss_terms else 0.0)
         train_s = time.time() - t0
@@ -526,16 +569,19 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
         records.append({
             "epoch": epoch, "phase": phase_name, "lr": lr,
             "steps": n_steps, "loss": epoch_loss / max(n_steps, 1),
+            "step_losses": step_losses,
             "train_s": train_s, "timer": summary,
             "launches": {k: launches[k] - launches0[k] for k in launches},
+            "collectives": {k: v - collectives0[k]
+                            for k, v in mesh_lib.COLLECTIVES.items()},
             "scorer_path": scorer.path})
 
         # a checkpoint every 2 epochs before validation starts
         ckpt_root = cfg.model_checkpoint_path
         if ckpt_root and epoch % 2 == 0 and epoch < cfg.one_by_one_starts_at:
-            save_checkpoint(os.path.join(ckpt_root, "checkpoints",
+            save_checkpoint_on_main(os.path.join(ckpt_root, "checkpoints",
                                          f"E_{epoch}"),
-                            model, wv_model, mv_model, state)
+                            model, wv_model, mv_model, state, mesh)
         # validation, and a checkpoint at the best METEOR
         if epoch >= cfg.one_by_one_starts_at and val_datasets:
             metrics_avg = [eval_model(cfg, sf, state, ds, epoch, logger,
@@ -547,9 +593,9 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
             if meteor > best_metric:
                 best_metric = meteor
                 if ckpt_root:
-                    save_checkpoint(os.path.join(ckpt_root, "checkpoints",
+                    save_checkpoint_on_main(os.path.join(ckpt_root, "checkpoints",
                                                  f"E_{epoch}"),
-                                    model, wv_model, mv_model, state)
+                                    model, wv_model, mv_model, state, mesh)
                 epochs_unchanged = 0
             else:
                 epochs_unchanged += 1
@@ -564,3 +610,25 @@ def train_rl_cap(cfg: Config, max_steps_per_epoch: Optional[int] = None,
     return {"best_metric": best_metric, "state": state,
             "start_epoch": start_epoch, "step_factory": sf,
             "epochs": records}
+
+
+def _train_rank(mesh, cfg: Config, max_steps_per_epoch: Optional[int]):
+    """One rank of ``train_ranks``: the loop on this rank's mesh; the
+    picklable part of its result (no modules, no state)."""
+    out = train_rl_cap(cfg, max_steps_per_epoch, mesh=mesh)
+    if cfg.mode == "eval":
+        return out
+    return {k: out[k] for k in ("best_metric", "start_epoch", "epochs")}
+
+
+def train_ranks(cfg: Config, device="cuda",
+                max_steps_per_epoch: Optional[int] = None) -> Dict:
+    """``train_rl_cap`` over the data axis of ``cfg.mesh_shape``, on that
+    many new processes (``parallel.mesh.spawn``: one card each on CUDA,
+    gloo ranks on the CPU). Returns rank 0's result without its modules
+    and state (``{"best_metric", "start_epoch", "epochs"}``; the metrics
+    in eval mode): the checkpoints hold the parameters."""
+    world = mesh_lib.resolve_data(cfg.mesh_shape, device)
+    return mesh_lib.spawn(_train_rank, world, device,
+                          args=(cfg, max_steps_per_epoch))
+

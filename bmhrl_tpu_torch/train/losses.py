@@ -2,12 +2,20 @@
 bmhrl_tpu/train/losses.py). The captioning losses take log-probabilities
 (the model emits log_softmax) and return elementwise tensors; callers
 reduce (sum / n_tokens) as the reference epoch loops do. The DETR's word
-loss takes targets that ``hungarian_match`` assigns on the host (scipy)."""
+loss takes targets that ``hungarian_match`` assigns on the host (scipy).
+
+The losses that reduce (``masked_mse``, ``reinforce_loss``,
+``detr_word_loss``) take a data-parallel ``mesh``: the denominator is then
+the global batch's and the value this rank's share of the global loss
+(the ranks' shares sum to it, and so do their gradients); None: the mean
+over the rows given."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from bmhrl_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _kl_div_elementwise(pred_log: torch.Tensor,
@@ -53,24 +61,33 @@ def biased_kl(pred_log: torch.Tensor, target: torch.Tensor,
     return _kl_div_elementwise(pred_log, dist + 1e-8)
 
 
+def _mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """torch.mean(x), over the global batch with a mesh (this rank's
+    share)."""
+    if mesh is None or mesh.world == 1:
+        return torch.mean(x)
+    return x.sum() / mesh_lib.global_numel(x, mesh)
+
+
 def masked_mse(pred: torch.Tensor, target: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
+               mask: torch.Tensor, mesh=None) -> torch.Tensor:
     """mean((pred - target)^2 * mask): the value-net loss of the reference
     epoch loops."""
-    return torch.mean((pred - target) ** 2 * mask)
+    return _mean((pred - target) ** 2 * mask, mesh)
 
 
 def reinforce_loss(pred_probs: torch.Tensor, action: torch.Tensor,
                    value: torch.Tensor, critic_value: torch.Tensor,
-                   eps: float = 1e-5) -> torch.Tensor:
+                   eps: float = 1e-5, mesh=None) -> torch.Tensor:
     """Actor-critic: -mean(detached advantage * log pi(a)) +
     mean(advantage^2), the probabilities clipped to [eps, 1 - eps] (the
     reference's entropy term is off)."""
     pred_probs = pred_probs.clamp(eps, 1.0 - eps)
     policy_action = pred_probs.gather(-1, action[..., None].long())[..., 0]
     advantage = value - critic_value
-    policy_loss = -torch.mean(advantage.detach() * torch.log(policy_action))
-    return policy_loss + torch.mean(advantage ** 2)
+    policy_loss = -_mean(advantage.detach() * torch.log(policy_action),
+                         mesh)
+    return policy_loss + _mean(advantage ** 2, mesh)
 
 
 def hungarian_match(pred_logits, targets, pad_idx: int = 1) -> np.ndarray:
@@ -97,7 +114,7 @@ def hungarian_match(pred_logits, targets, pad_idx: int = 1) -> np.ndarray:
 
 
 def detr_word_loss(pred_logits: torch.Tensor, target_classes: torch.Tensor,
-                   eos_coef: float = 0.1) -> torch.Tensor:
+                   eos_coef: float = 0.1, mesh=None) -> torch.Tensor:
     """Weighted cross-entropy of the query classes, the "no word" class
     weighted ``eos_coef``: sum(w nll) / sum(w)."""
     num_classes = pred_logits.shape[-1] - 1
@@ -105,4 +122,4 @@ def detr_word_loss(pred_logits: torch.Tensor, target_classes: torch.Tensor,
     tc = target_classes.long()
     nll = -logp.gather(-1, tc[..., None])[..., 0]
     w = torch.where(tc == num_classes, eos_coef, 1.0)
-    return torch.sum(w * nll) / torch.sum(w)
+    return torch.sum(w * nll) / mesh_lib.global_sum(torch.sum(w), mesh)

@@ -15,6 +15,13 @@ update (worker and manager phases) and the teacher-forced validation loss
 - The RL reward is scored on the host between ``rl_rollout`` and
   ``rl_update``; the steps take the scores as a (B, L) tensor.
 - Metrics are tensors on the device: a step does not wait for the card.
+- Data parallel (``mesh``, ``parallel.mesh``): the batch a step takes is
+  this rank's rows of the global batch. Every normaliser is a global count,
+  so a rank's loss is its share of the global loss; the ranks' gradients
+  are summed (``all_reduce_grads``) before ``clip_by_global_norm``, so
+  every rank clips, and skips a non-finite step, alike and applies the
+  one-process update of the global batch. Draws are the global batch's,
+  sliced; the metrics are the global values on every rank.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from bmhrl_tpu_torch.data.vocab import EOS, PAD
 from bmhrl_tpu_torch.models.blocks import Draws
 from bmhrl_tpu_torch.ops import segments as seg_ops
 from bmhrl_tpu_torch.ops.masking import make_masks
+from bmhrl_tpu_torch.parallel import mesh as mesh_lib
 from bmhrl_tpu_torch.train import losses as L
 from bmhrl_tpu_torch.train.optim import (AdamState, GatedAdam,
                                          clip_by_global_norm)
@@ -114,13 +122,16 @@ def _grads(loss: torch.Tensor, params: Dict[str, torch.Tensor]
 
 class StepFactory:
     """The training steps of one captioner and its two value functions.
-    Freezes the critic (``requires_grad`` off)."""
+    Freezes the critic (``requires_grad`` off). ``mesh``: the data-parallel
+    mesh (None: one process)."""
 
     # the synonym noise's rate of the captions
     SYNONYM_P = 0.3
 
-    def __init__(self, cfg, model, wv_model, mv_model, emb_trainable: bool):
+    def __init__(self, cfg, model, wv_model, mv_model, emb_trainable: bool,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.model = model
         self.wv_model = wv_model
         self.mv_model = mv_model
@@ -147,7 +158,7 @@ class StepFactory:
                           mv_opt=self.val_optim.init(self.mv_params))
 
     def draws(self, seed: int) -> Draws:
-        return Draws(seed, self.device)
+        return Draws(seed, self.device, self.mesh)
 
     # -- shared forward prep -------------------------------------------------
     def _prep(self, batch, draws: Draws):
@@ -162,7 +173,8 @@ class StepFactory:
         return V, A, x_idx, y_idx, masks
 
     def _update_captioner(self, state: TrainState, loss, phase: str, lr):
-        grads = _grads(loss, self.cap_params)
+        grads = mesh_lib.all_reduce_grads(_grads(loss, self.cap_params),
+                                          self.mesh)
         if self.cfg.grad_clip is not None:
             grads = clip_by_global_norm(grads, self.cfg.grad_clip)
         mask = phase_mask(self.groups, phase, self.emb_trainable)
@@ -170,11 +182,11 @@ class StepFactory:
                                      mask, lr)
 
     def _update_value(self, net, params, opt_state, feat, target, vmask):
-        loss = L.masked_mse(net(feat)[..., 0], target, vmask)
-        opt_state = self.val_optim.update(_grads(loss, params), opt_state,
-                                          params, True,
+        loss = L.masked_mse(net(feat)[..., 0], target, vmask, self.mesh)
+        grads = mesh_lib.all_reduce_grads(_grads(loss, params), self.mesh)
+        opt_state = self.val_optim.update(grads, opt_state, params, True,
                                           self.cfg.rl_value_function_lr)
-        return loss.detach(), opt_state
+        return mesh_lib.global_sum(loss.detach(), self.mesh), opt_state
 
     # -- warmstart -----------------------------------------------------------
     def warmstart_step(self, state: TrainState, batch, seed: int, lr: float,
@@ -185,7 +197,7 @@ class StepFactory:
         draws = draws or self.draws(seed)
         V, A, x_idx, y_idx, masks = self._prep(batch, draws)
         token_mask = y_idx != PAD
-        n_tokens = token_mask.sum()
+        n_tokens = mesh_lib.global_count(token_mask, self.mesh)
         pred, wf, mf, goals, seg = self.model(
             V, A, x_idx, masks, exploration=True, deterministic=False,
             draws=draws)
@@ -196,7 +208,8 @@ class StepFactory:
                "token_mask": token_mask, "seg": seg, "wf": wf.detach(),
                "mf": mf.detach()}
         return (state._replace(cap_opt=cap_opt),
-                {"loss": loss.detach(), "n_tokens": n_tokens}, aux)
+                {"loss": mesh_lib.global_sum(loss.detach(), self.mesh),
+                 "n_tokens": n_tokens}, aux)
 
     def value_warmstart_step(self, state: TrainState, wf, mf, w_score,
                              m_score, token_mask, seg):
@@ -245,7 +258,7 @@ class StepFactory:
         draws = draws or self.draws(seed)
         V, A, x_idx, y_idx, masks = self._prep(batch, draws)
         loss_mask = y_idx != PAD
-        n_tokens = loss_mask.sum()
+        n_tokens = mesh_lib.global_count(loss_mask, self.mesh)
         Lc = y_idx.shape[1]
         sampled = roll["sampled"]
         sampled_probs = roll["sampled_probs"]
@@ -286,8 +299,12 @@ class StepFactory:
                 self.mv_model, self.mv_params, state.mv_opt, mf.detach(),
                 score, seg0.float())
             state = state._replace(mv_opt=mv_opt)
-        return state, {"loss": cap_loss.detach(), "value_loss": v_l,
-                       "score_sum": score.sum(), "n_tokens": n_tokens}
+        return state, {"loss": mesh_lib.global_sum(cap_loss.detach(),
+                                                   self.mesh),
+                       "value_loss": v_l,
+                       "score_sum": mesh_lib.global_sum(score.sum(),
+                                                        self.mesh),
+                       "n_tokens": n_tokens}
 
     # -- teacher-forced validation ---------------------------------------------
     @torch.no_grad()
@@ -298,6 +315,7 @@ class StepFactory:
         x_idx, y_idx = cap[:, :-1], cap[:, 1:]
         masks = make_masks({"rgb": batch["rgb"], "audio": A}, x_idx, PAD)
         pred = self.model(V, A, x_idx, masks)[0]
-        n_tokens = (y_idx != PAD).sum()
-        return L.label_smoothing(pred, y_idx, self.cfg.smoothing,
-                                 PAD).sum() / n_tokens
+        n_tokens = mesh_lib.global_count(y_idx != PAD, self.mesh)
+        return mesh_lib.global_sum(L.label_smoothing(
+            pred, y_idx, self.cfg.smoothing, PAD).sum() / n_tokens,
+            self.mesh)

@@ -20,6 +20,7 @@ import torch
 
 from bmhrl_tpu_torch.data.vocab import PAD
 from bmhrl_tpu_torch.models.blocks import Draws
+from bmhrl_tpu_torch.parallel import mesh as mesh_lib
 from bmhrl_tpu_torch.train import losses as L
 from bmhrl_tpu_torch.train.optim import clip_by_global_norm
 from bmhrl_tpu_torch.train.steps import (LOSS_FACTOR, StepFactory, TrainState,
@@ -61,7 +62,7 @@ class DetrStepFactory(StepFactory):
             batch, seed, draws)
         loss_mask = y_idx != PAD
         vmask = loss_mask.float()
-        num_words = (x_idx != PAD).sum()
+        num_words = mesh_lib.global_count(x_idx != PAD, self.mesh)
         sampled_probs = pred.detach().exp().gather(
             -1, sampled[..., None].long())[..., 0]
         ev = self.wv_model(wf)[..., 0]
@@ -71,12 +72,15 @@ class DetrStepFactory(StepFactory):
         amplitude = (score * sampled_probs * norm_factor).clamp(0.0, 1.0)
         div = L.biased_kl(pred, y_idx, sampled, amplitude, 0.7, PAD)
         cap_loss = div.sum() / (num_words * LOSS_FACTOR)
-        value_loss = L.masked_mse(ev * vmask, score, vmask)
-        word_loss = L.detr_word_loss(classes, target_classes)
+        value_loss = L.masked_mse(ev * vmask, score, vmask, self.mesh)
+        word_loss = L.detr_word_loss(classes, target_classes,
+                                     mesh=self.mesh)
         total = cap_loss + 0.5 * value_loss + word_loss
-        grads = _grads(total, {**self.cap_params,
-                               **{("wv", n): p
-                                  for n, p in self.wv_params.items()}})
+        grads = mesh_lib.all_reduce_grads(
+            _grads(total, {**self.cap_params,
+                           **{("wv", n): p
+                              for n, p in self.wv_params.items()}}),
+            self.mesh)
         cap_g = {n: grads[n] for n in self.cap_params}
         if cfg.grad_clip is not None:
             cap_g = clip_by_global_norm(cap_g, cfg.grad_clip)
@@ -86,9 +90,11 @@ class DetrStepFactory(StepFactory):
         wv_opt = self.val_optim.update(
             {n: grads[("wv", n)] for n in self.wv_params}, state.wv_opt,
             self.wv_params, True, cfg.rl_value_function_lr)
-        metrics = {"loss": cap_loss.detach(), "value_loss": value_loss.detach(),
-                   "word_loss": word_loss.detach(),
-                   "total_loss": total.detach()}
+        metrics = {k: mesh_lib.global_sum(v.detach(), self.mesh)
+                   for k, v in (("loss", cap_loss),
+                                ("value_loss", value_loss),
+                                ("word_loss", word_loss),
+                                ("total_loss", total))}
         return state._replace(cap_opt=cap_opt, wv_opt=wv_opt), metrics
 
     def reinforce_update(self, state: TrainState, batch, seed: int, lr: float,
@@ -100,14 +106,17 @@ class DetrStepFactory(StepFactory):
         (pred, wf, *_), _, _, _ = self._forward(batch, seed, draws)
         with torch.no_grad():
             expected_value = self.wv_model(wf)[..., 0]
-        loss = L.reinforce_loss(pred.exp(), sampled, score, expected_value)
-        grads = _grads(loss, self.cap_params)
+        loss = L.reinforce_loss(pred.exp(), sampled, score, expected_value,
+                                mesh=self.mesh)
+        grads = mesh_lib.all_reduce_grads(_grads(loss, self.cap_params),
+                                          self.mesh)
         if self.cfg.grad_clip is not None:
             grads = clip_by_global_norm(grads, self.cfg.grad_clip)
         mask = phase_mask(self.groups, "worker", self.emb_trainable)
         cap_opt = self.cap_optim.update(grads, state.cap_opt,
                                         self.cap_params, mask, lr)
-        return state._replace(cap_opt=cap_opt), {"loss": loss.detach()}
+        return state._replace(cap_opt=cap_opt), {
+            "loss": mesh_lib.global_sum(loss.detach(), self.mesh)}
 
     def match_targets(self, pred_classes, x_idx) -> np.ndarray:
         """The detector's query targets of a batch, on the host."""

@@ -66,6 +66,22 @@ def _cpu(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
+def save_checkpoint_on_main(ckpt_dir: str, model, wv_model, mv_model,
+                            state, mesh=None) -> str:
+    """``save_checkpoint`` from rank 0 of a data-parallel ``mesh`` (the
+    ranks hold one replica), between two barriers: every rank has finished
+    the step before, and finds the files complete after. Without a mesh,
+    ``save_checkpoint``."""
+    ranks = mesh is not None and mesh.world > 1
+    if ranks:
+        mesh.barrier()
+    if not ranks or mesh.is_main:
+        save_checkpoint(ckpt_dir, model, wv_model, mv_model, state)
+    if ranks:
+        mesh.barrier()
+    return ckpt_dir
+
+
 def save_checkpoint(ckpt_dir: str, model, wv_model, mv_model, state) -> str:
     """Write the modules' parameters and ``state`` (a ``TrainState``) into
     ``ckpt_dir``; returns it."""

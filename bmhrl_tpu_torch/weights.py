@@ -91,14 +91,15 @@ def flax_keys(model: nn.Module) -> Dict[str, Tuple[str, bool]]:
 @torch.no_grad()
 def jax_layout_params(model: nn.Module) -> Dict:
     """The inverse of ``load_jax_params``: ``model``'s weights as a flax
-    variable tree ``{"params": ...}`` of numpy f32 arrays."""
+    variable tree ``{"params": ...}`` of numpy f32 arrays (copies: a later
+    in-place update of the module leaves them as they are)."""
     tree: Dict = {}
     for path, p, transposed in _flax_paths(model):
         arr = p.detach().float().cpu().numpy()
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(arr.T if transposed else arr)
+        node[path[-1]] = np.array(arr.T if transposed else arr, order="C")
     return {"params": tree}
 
 

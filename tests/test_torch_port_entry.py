@@ -317,16 +317,31 @@ def test_serve_captions_cli_matches_jax(corpus, serve_pt, tmp_path, extra,
 
 @pytest.mark.parametrize("flags,message", [
     (["--checkpoint_dir", "ckpt"], "export_torch_bmhrl"),
-    (["--mesh", "2"], "not ported yet"),
+    (["--mesh", "2"], None),
     (["--from_bundle", "jax_bundle"], "run only under JAX"),
     (["--from_bundle", "jax_bundle", "--mesh", "2"], "not ported yet")])
-def test_serve_captions_cli_refuses_what_is_not_ported(corpus, tmp_path,
-                                                        flags, message):
-    """--mesh > 1 exits "not ported yet", with --from_bundle too;
+def test_serve_captions_cli_refuses_what_is_not_ported(corpus, serve_pt,
+                                                        tmp_path, flags,
+                                                        message):
+    """--from_bundle with --mesh > 1 exits "not ported yet" (a bundle's
+    step computes the cross-row goals inside itself); --mesh 2 alone now
+    serves on two ranks, and with batches of 4 (the tail of 3 padded to 4,
+    a multiple of the ranks) gives the one process's submission;
     --checkpoint_dir reads the port's own checkpoints and refuses an orbax
     directory (the JAX package's) with the export message; --from_bundle
     refuses a JAX bundle (jax.export blobs run only under JAX)."""
     from bmhrl_tpu_torch.cli.serve_captions import main
+
+    if message is None:
+        outs = [str(tmp_path / f"mesh{n}.json") for n in (1, 2)]
+        for n, out in zip((1, 2), outs):
+            stats = main(_serve_args(corpus, serve_pt, out, [
+                "--device", "cpu", "--mesh", str(n)]))
+            assert (stats.clips, stats.batches, stats.padded_rows) == (
+                11, 3, 1)
+        with open(outs[0]) as f, open(outs[1]) as g:
+            assert json.load(g) == json.load(f)
+        return
 
     if flags[0] == "--checkpoint_dir":
         os.makedirs(tmp_path / "ckpt" / "state")

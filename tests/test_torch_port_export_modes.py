@@ -5,7 +5,8 @@ reference ``.pt`` exports of the unimodal and DETR captioners, on the CPU:
   ``ExportedCaptionServer`` gives the live port server's submission (both
   with fixed batch shapes; the live server is held to JAX's by
   test_torch_port_{unimodal,detr_loop}.py); the DETR's pre-goal path,
-  which has no fast loop, is refused;
+  which has no fast loop, exports its full-buffer loop, with the same
+  submission;
 - ``serve_captions --export_bundle`` then ``--from_bundle`` of the port
   against the JAX CLI's same two commands from one reference ``.pt``;
 - ``utils.checkpoint.export_torch_unimodal`` / ``export_torch_detr`` write
@@ -61,10 +62,26 @@ def test_family_bundle_equals_live_server(corpus, mode, W):
 
 
 def test_pre_goal_detr_export_is_refused(corpus, tmp_path):
+    """The DETR's pre-goal path, refused until it had a step to export, now
+    exports the full-buffer loop's start and step: its bundle gives the
+    live server's submission (greedy; the tail of 3 padded to 4)."""
     cfg, vocab, model = _model(corpus, "DETR", pre_goal_attention=True)
-    with pytest.raises(ValueError, match="full buffer"):
-        serve_export.export_decode_bundle(cfg, model, vocab.itos,
-                                          [(BS, 32, 64)], str(tmp_path))
+    assert not model.has_fast_loop
+    reqs = read_proposals_json(corpus["proposals"])
+    shapes = sorted({(BS, vb, ab) for _, vb, ab in plan_batches(reqs, cfg,
+                                                                BS)})
+    out = str(tmp_path / "pre_goal")
+    manifest = serve_export.export_decode_bundle(cfg, model, vocab.itos,
+                                                 shapes, out)
+    assert manifest["mode"] == "DETR"
+    got, stats = serve_export.ExportedCaptionServer(
+        out, cfg.video_features_path, cfg.audio_features_path,
+        device="cpu").caption(reqs, batch_size=BS)
+    live = CaptionServer(cfg, model, vocab.itos, device="cpu")
+    live._fixed_batch = True
+    want, _ = live.caption(reqs, batch_size=BS)
+    assert got == want
+    assert stats.clips == 11 and stats.padded_rows == 1
 
 
 @pytest.fixture(scope="module")

@@ -110,7 +110,7 @@ def fake_factory(rec: Recorder, to_out, to_np):
     numpy outputs into the package's arrays, ``to_np`` inputs into numpy."""
 
     class Fake:
-        def __init__(self, cfg, model, wv, mv, emb_trainable):
+        def __init__(self, cfg, model, wv, mv, emb_trainable, mesh=None):
             self.model, self.wv_model, self.mv_model = model, wv, mv
             self.device = torch.device("cpu")
 
@@ -341,7 +341,7 @@ def test_eval_model_matches_jax(corpus, tmp_path, beam):
     dims = dict(DIMS, voc_size=ds.trg_voc_size)
     tree = random_jax_layout_params(dims, seed=3)
     sf = SimpleNamespace(model=torch_agent(tree, dims),
-                         device=torch.device("cpu"))
+                         device=torch.device("cpu"), mesh=None)
     got = ploop.eval_model(cfg, sf, None, ds, 1, None, corpus["ref"])
     with jax_kernels(folded=False):
         want = jloop.eval_model(
@@ -458,11 +458,13 @@ def test_unimodal_epoch(corpus, tmp_path, mode):
 
 
 def test_unported_modes_and_orbax_dirs_exit(corpus, tmp_path):
-    """A mesh exits "not ported yet", an orbax directory with its message
-    (every --mode is ported: DETR and verbose run in
-    test_torch_port_detr_train.py and test_torch_port_leftovers.py)."""
-    with pytest.raises(SystemExit, match="not ported yet"):
-        pcli.main(_argv(corpus, tmp_path, "--mesh_data", "2"))
+    """A model axis exits with its reason (the port has no tensor
+    parallelism; --mesh_data 2 trains, test_torch_port_mesh_loop.py), an
+    orbax directory with its message (every --mode is ported: DETR and
+    verbose run in test_torch_port_detr_train.py and
+    test_torch_port_leftovers.py)."""
+    with pytest.raises(SystemExit, match="no model axis"):
+        pcli.main(_argv(corpus, tmp_path, "--mesh_model", "2"))
     orbax = tmp_path / "jaxrun" / "E_3"
     os.makedirs(orbax / "state")
     with pytest.raises(SystemExit, match="orbax"):
@@ -486,7 +488,7 @@ def _same_config(cfg, jcfg):
     names = [f.name for f in dataclasses.fields(JConfig) if f.init]
     assert {n: getattr(cfg, n) for n in names} == {
         n: getattr(jcfg, n) for n in names}
-    # the port runs on one card; JAX multiplies by its data-parallel devices
+    # (0, 1) is every device: the port's one CPU, JAX's virtual devices
     n = jcfg.num_data_devices()
     assert cfg.train_batch_size * n == jcfg.train_batch_size
     assert cfg.inference_batch_size * n == jcfg.inference_batch_size

@@ -157,7 +157,8 @@ def test_sampled_server_matches_jax(tree, request_dirs, top_k):
     opts = dict(sample=True, temperature=0.8, top_p=0.9, top_k=top_k,
                 sample_seed=11)
     draws = RecordingDraws(11)
-    with mock.patch.object(port_serve, "Draws", lambda seed, device: draws):
+    with mock.patch.object(port_serve, "Draws",
+                           lambda seed, device, mesh: draws):
         server = CaptionServer(
             Config(video_features_path=vdir, audio_features_path=adir,
                    **BUCKETS), torch_agent(tree), itos, device="cpu", **opts)
