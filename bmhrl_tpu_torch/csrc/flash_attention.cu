@@ -13,7 +13,8 @@
 //                      paths, on the tensor cores (training's gradient is
 //                      the recompute in ops/attention.py, no kernel);
 //   flash_simt_kernel  f32 at d in {128..512}, bf16 at d in {384, 512}: on
-//                      the CUDA cores in f32.
+//                      the tensor cores as 3xTF32 (f32 accuracy); the route
+//                      keeps its name and launch counter, "simt".
 //
 // Semantics kept from the TPU kernels, by both routes:
 //   - s = (q . k) * 1/sqrt(d) in f32; -1e9 where the key mask is 0 or, with
@@ -28,7 +29,12 @@
 // elements moved, Sq*Sk/(Sq+Sk) operations per bf16 byte: 64 at 128x128,
 // 85 at 128x256, 128 at 256x256, below the card's ~295 bf16 operations per
 // byte, so the flagship's encoder sites are bound by BYTES. Only the
-// long-source 800x800 site (400 per byte) is bound by operations.
+// long-source 800x800 site (400 per byte) is bound by operations. In f32
+// each product is three tf32 products: the operations bound is 3 * 4 Sq Sk
+// d / 495 TFLOP/s, about 103 operations per f32 byte, so at B=256, 4 heads
+// of d=256, V<-V (128x128, 537 MB, 17.2 GFLOP) is bound by bytes (0.160
+// ms) and A<-A (256x256, 0.416 ms), 300x800 and 800x800 by operations. On
+// the CUDA cores (67 TFLOP/s) V<-V alone would take 0.257 ms.
 //
 // flash_tc_kernel: one block of 8 warps per (batch row, head, 128 queries),
 // so at Sq <= 128 each head's K/V is read from device memory once. Q is
@@ -42,12 +48,38 @@
 // S accumulator layout of two adjacent 8-key tiles is the A fragment of one
 // 16-key step). The output leaves through the warp's own Q rows in shared
 // memory as 16-byte stores.
+//
+// flash_simt_kernel (3xTF32): one block of 8 warps (4 at f32 d = 512, where
+// 8 do not fit, and 4 at d <= 256 where 8-warp blocks would leave over half
+// the SMs idle; ops/attention.py flash_simt_warps) per (batch row, head,
+// query tile). Each warp owns 16 queries; at d >= 384 two warps share
+// them, each owning half of O's columns, so O stays at 96 or 128 registers
+// a thread, and each computes their 16 x 16 S tile itself (no exchange
+// through shared memory: those widths are no model's main path, and the
+// second S adds half again the products there). Q is staged once;
+// K/V tiles of 16 keys arrive by 16-byte cp.async in a 2-stage ring
+// (the next tile loads while this one is used), rows padded by 16 bytes so
+// every fragment load is free of bank conflicts: f32 Q and K by ldmatrix as
+// 8x4 tiles of 32-bit words, V as rows (2t, 2t + 1) of column g. Each f32
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi), rounded to
+// nearest with ties away from zero (cvt.rna.tf32's result, in two integer
+// instructions), and each product is lo hi + hi lo + hi hi on mma.sync
+// m16n8k8 tf32 with f32 accumulators: about 22 bits of mantissa, none of it
+// single-pass TF32. A bf16 operand is exact in tf32: its lo terms drop out.
+// S accumulates in two mma chains (even and odd 8-column steps); the online
+// softmax runs on the S fragment in registers in f32 (expf), P enters PV as
+// the fragment holds it, its k axis (t, t + 4) read as keys (2t, 2t + 1)
+// and V's rows taken in the same order.
+//   ptxas -v (sm_90a), no spill at any width: f32 d 128 / 256 / 384 / 512:
+//   138 / 208 / 178 / 209 registers; bf16 d 384 / 512: 164 / 197.
+//   Shared memory a block: f32 d 128 101,504 bytes (8 warps) or 67,712
+//   (4), d 256 199,808 or 133,248, d 384 198,784, d 512 198,272 (4
+//   warps); bf16 d 384 100,480, d 512 133,248.
 #include "async_mma.cuh"
 #include "common.cuh"
 
 namespace {
 
-using bmhrl::from_f;
 using bmhrl::kMaskFill;
 using bmhrl::round_to;
 using bmhrl::to_f;
@@ -293,164 +325,260 @@ int launch(const void* q, const void* k, const void* v, const int* mask,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// CUDA-core route (f32, and bf16 at d = 384, 512): the first version of
-// this kernel. Tiles of 32 keys in f32 shared memory, one key per lane for
-// the scores, float4 reads from rows padded to d + 4 floats.
+// 3xTF32 route (f32, and bf16 at d = 384, 512), on the tensor cores
 namespace simt {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kBK = 32;        // keys per tile: one key per lane
-
-template <int D>
-struct Cfg {
-  static constexpr int BQ = D <= 256 ? 32 : 16;    // queries per block
-  static constexpr int RPW = BQ / 8;               // score rows per warp
-  static constexpr int TPC = D < 256 ? D : 256;    // PV threads per row
-  static constexpr int NRG = kThreads / TPC;       // PV row groups
-  static constexpr int RPT = BQ / NRG;             // PV rows per thread
-  static constexpr int NCOL = (D + TPC - 1) / TPC; // PV columns per thread
-  static constexpr int QS = D + 4;  // Q/K row stride: float4 reads by 8
-                                    // lanes of different rows hit distinct
-                                    // bank groups
-  static constexpr size_t smem =
-      sizeof(float) * (BQ * QS + kBK * QS + kBK * D + BQ * kBK + 2 * BQ) +
-      sizeof(int) * kBK;
-};
+constexpr int BKV = 16;  // keys per tile
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+struct Cfg {
+  static constexpr int WPQ = D <= 256 ? 1 : 2;  // warps sharing 16 queries
+  static constexpr int DW = D / WPQ;            // O columns per warp
+  static constexpr int NT = DW / 8;             // 8-column tiles of O
+  static constexpr int EPC = 16 / sizeof(T);    // elements per 16 bytes
+  static constexpr int RS = D + EPC;  // shared row stride: +16 bytes
+  static constexpr int CH = D / EPC;  // 16-byte chunks per row
+  // f32 operands are split into two tf32 terms; bf16 ones are exact
+  static constexpr bool kSplit = sizeof(T) == 4;
+};
+
+// shared memory of a block of `warps` warps: Q (16 * warps / WPQ rows),
+// two stages of K and V (BKV rows each) and of the mask
+template <typename T, int D>
+size_t smem_bytes(int warps) {
+  using C = Cfg<T, D>;
+  return sizeof(T) * C::RS * (16 * warps / C::WPQ + 4 * BKV) +
+         sizeof(int) * 2 * BKV;
+}
+
+// rows x D from src (row stride rs elements) into dst (row stride RS);
+// rows >= valid arrive as zeros
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t rs,
+                                          int rows, int valid, int tid,
+                                          int nthreads) {
+  using C = Cfg<T, D>;
+  for (int idx = tid; idx < rows * C::CH; idx += nthreads) {
+    const int r = idx / C::CH, c = idx % C::CH;
+    const bool ok = r < valid;
+    bmhrl::cp_async16(dst + r * C::RS + c * C::EPC,
+                      ok ? src + r * rs + c * C::EPC : src, ok ? 16 : 0);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(256, 1)
     flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ mask,
                       T* __restrict__ out, int Sq, int Sk, int H,
                       int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
                       int64_t v_bs, int64_t v_rs, float scale, int causal) {
-  using C = Cfg<D>;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                   // BQ x QS
-  float* Ks = Qs + C::BQ * C::QS;     // kBK x QS
-  float* Vs = Ks + kBK * C::QS;       // kBK x D
-  float* Ps = Vs + kBK * D;           // BQ x kBK
-  float* corr_s = Ps + C::BQ * kBK;   // BQ
-  float* l_s = corr_s + C::BQ;        // BQ
-  int* mask_s = reinterpret_cast<int*>(l_s + C::BQ);  // kBK
+  using C = Cfg<T, D>;
+  constexpr int RS = C::RS;
+  constexpr bool SP = C::kSplit;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nthreads = blockDim.x, warps = nthreads >> 5;
+  const int BQ = 16 * warps / C::WPQ;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + BQ * RS;         // 2 stages
+  T* Vs = Ks + 2 * BKV * RS;    // 2 stages
+  int* Ms = reinterpret_cast<int*>(Vs + 2 * BKV * RS);  // 2 x BKV
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * C::BQ, h = blockIdx.y, b = blockIdx.z;
-  const T* qb = q + b * q_bs + h * D;
+  const int g = lane >> 2, t4 = lane & 3;
+  // warp = 16-query group qg, column part c0
+  const int qg = warp / C::WPQ, c0 = warp % C::WPQ * C::DW;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const T* kb = k + b * k_bs + h * D;
   const T* vb = v + b * v_bs + h * D;
   const int* mb = mask + static_cast<int64_t>(b) * Sk;
+  const int n_tiles = (Sk + BKV - 1) / BKV;
 
-  for (int idx = tid; idx < C::BQ * D; idx += kThreads) {
-    const int i = idx / D, c = idx % D;
-    Qs[i * C::QS + c] = q0 + i < Sq ? to_f(qb[(q0 + i) * q_rs + c]) : 0.f;
-  }
-
-  float m_run[C::RPW], l_run[C::RPW];
-#pragma unroll
-  for (int r = 0; r < C::RPW; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
-  }
-  float acc[C::NCOL][C::RPT];
-#pragma unroll
-  for (int n = 0; n < C::NCOL; ++n)
-#pragma unroll
-    for (int r = 0; r < C::RPT; ++r) acc[n][r] = 0.f;
-  const int col = tid % C::TPC, rg = tid / C::TPC;
-
-  for (int k0 = 0; k0 < Sk; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed; Qs is written
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int j = idx / D, c = idx % D;
-      float kx = 0.f, vx = 0.f;  // zero rows past Sk keep 0 * v finite
-      if (k0 + j < Sk) {
-        kx = to_f(kb[(k0 + j) * k_rs + c]);
-        vx = to_f(vb[(k0 + j) * v_rs + c]);
-      }
-      Ks[j * C::QS + c] = kx;
-      Vs[j * D + c] = vx;
+  auto load_kv = [&](int t) {
+    const int k0 = t * BKV, valid = min(BKV, Sk - k0), st = t & 1;
+    load_rows<T, D>(Ks + st * BKV * RS, kb + k0 * k_rs, k_rs, BKV, valid,
+                    tid, nthreads);
+    load_rows<T, D>(Vs + st * BKV * RS, vb + k0 * v_rs, v_rs, BKV, valid,
+                    tid, nthreads);
+    if (tid < BKV) {
+      const bool ok = tid < valid;
+      bmhrl::cp_async4(Ms + st * BKV + tid, mb + k0 + (ok ? tid : 0),
+                       ok ? 4 : 0);
     }
-    if (tid < kBK) mask_s[tid] = k0 + tid < Sk ? mb[k0 + tid] : 0;
-    __syncthreads();
+  };
+  load_rows<T, D>(Qs, q + b * q_bs + q0 * q_rs + h * D, q_rs, BQ, Sq - q0,
+                  tid, nthreads);
+  load_kv(0);
+  bmhrl::cp_async_commit();
 
-    // scores and the online softmax: warp w owns rows w + 8r, lane = key
-    const int kj = k0 + lane;
-    const bool key_in = kj < Sk;
-    const float4* krow = reinterpret_cast<const float4*>(Ks + lane * C::QS);
+  float o[C::NT][4];
 #pragma unroll
-    for (int r = 0; r < C::RPW; ++r) {
-      const int i = warp + 8 * r;
-      const float4* qrow = reinterpret_cast<const float4*>(Qs + i * C::QS);
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 a = qrow[d4], bb = krow[d4];
-        dot = fmaf(a.x, bb.x, dot);
-        dot = fmaf(a.y, bb.y, dot);
-        dot = fmaf(a.z, bb.z, dot);
-        dot = fmaf(a.w, bb.w, dot);
-      }
-      float s = dot * scale;
-      if (!key_in) {
-        s = -INFINITY;
-      } else if (mask_s[lane] <= 0 || (causal && kj > q0 + i)) {
-        s = kMaskFill;
-      }
-      const float m_new = fmaxf(m_run[r], bmhrl::warp_max(s));
-      const float corr = m_run[r] == -INFINITY ? 0.f : expf(m_run[r] - m_new);
-      const float p = key_in ? expf(s - m_new) : 0.f;
-      l_run[r] = l_run[r] * corr + bmhrl::warp_sum(p);
-      m_run[r] = m_new;
-      Ps[i * kBK + lane] = round_to<T>(p);
-      if (lane == 0) corr_s[i] = corr;
-    }
-    __syncthreads();
+  for (int n = 0; n < C::NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const int qrow = q0 + 16 * qg + g;  // query of s[.][0..1]; +8 for [2..3]
+  const T* Qw = Qs + (16 * qg + g) * RS + t4;
+  // ldmatrix row addresses (f32): Q rows 16 qg + (lane & 7) + 8 (lane >> 3
+  // & 1) at column 4 (lane >> 4); key rows (lane & 7) + 8 (lane >> 4) at
+  // column 4 (lane >> 3 & 1)
+  const uint32_t q_addr = bmhrl::smem_u32(
+      Qs + (16 * qg + (lane & 7) + 8 * ((lane >> 3) & 1)) * RS +
+      4 * (lane >> 4));
+  const uint32_t k_addr = bmhrl::smem_u32(
+      Ks + ((lane & 7) + 8 * (lane >> 4)) * RS + 4 * ((lane >> 3) & 1));
+  const uint32_t k_stage = sizeof(T) * BKV * RS;
 
-    // acc = acc * corr + P V, thread owns columns col + n*TPC of RPT rows
+  for (int t = 0; t < n_tiles; ++t) {
+    bmhrl::cp_async_wait<0>();
+    __syncthreads();  // tile t has landed; tile t - 1 is consumed
+    if (t + 1 < n_tiles) load_kv(t + 1);
+    bmhrl::cp_async_commit();
+    const int k0 = t * BKV;
+    const T* Kt = Ks + ((t & 1) * BKV + g) * RS + t4;
+    const T* Vt = Vs + ((t & 1) * BKV + 2 * t4) * RS + c0 + g;
+    const int* Mt = Ms + (t & 1) * BKV;
+
+    // S = Q K^T, 16 queries x 16 keys: s[j][e] is row qrow + 8(e/2), key
+    // k0 + 8j + 2 t4 + e%2. Even and odd 8-column steps accumulate apart
+    // (two independent mma chains per key tile), summed after.
+    float s[2][4], s2[2][4];
 #pragma unroll
-    for (int n = 0; n < C::NCOL; ++n) {
-      const int c = col + n * C::TPC;
-      if (c < D) {
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int r = 0; r < C::RPT; ++r) acc[n][r] *= corr_s[rg * C::RPT + r];
-        for (int j = 0; j < kBK; j += 4) {
-          const float v0 = Vs[j * D + c], v1 = Vs[(j + 1) * D + c];
-          const float v2 = Vs[(j + 2) * D + c], v3 = Vs[(j + 3) * D + c];
+      for (int e = 0; e < 4; ++e) s[j][e] = s2[j][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D; kk += 16) {
 #pragma unroll
-          for (int r = 0; r < C::RPT; ++r) {
-            const float4 p4 = *reinterpret_cast<const float4*>(
-                Ps + (rg * C::RPT + r) * kBK + j);
-            float a = acc[n][r];
-            a = fmaf(p4.x, v0, a);
-            a = fmaf(p4.y, v1, a);
-            a = fmaf(p4.z, v2, a);
-            a = fmaf(p4.w, v3, a);
-            acc[n][r] = a;
+      for (int h = 0; h < 2; ++h) {
+        float af[4], bf[2][2];
+        if constexpr (SP) {
+          // f32 rows of 16 bytes: one ldmatrix each for Q's A fragment and
+          // the two key tiles' B fragments
+          float kf[4];
+          bmhrl::ldmatrix_f32_x4(af, q_addr + 4 * (kk + 8 * h));
+          bmhrl::ldmatrix_f32_x4(kf, k_addr + (t & 1) * k_stage +
+                                         4 * (kk + 8 * h));
+          bf[0][0] = kf[0];
+          bf[0][1] = kf[1];
+          bf[1][0] = kf[2];
+          bf[1][1] = kf[3];
+        } else {
+          const int c = kk + 8 * h;
+          af[0] = to_f(Qw[c]);
+          af[1] = to_f(Qw[8 * RS + c]);
+          af[2] = to_f(Qw[c + 4]);
+          af[3] = to_f(Qw[8 * RS + c + 4]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            bf[j][0] = to_f(Kt[8 * j * RS + c]);
+            bf[j][1] = to_f(Kt[8 * j * RS + c + 4]);
           }
+        }
+        uint32_t ah[4], al[4];
+        bmhrl::split_n<SP>(af, ah, al);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t bh[2], bl[2];
+          bmhrl::split_n<SP>(bf[j], bh, bl);
+          bmhrl::mma_3xtf32<SP, SP>(h ? s2[j] : s[j], ah, al, bh, bl);
         }
       }
     }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += s2[j][e];
+
+    // online softmax on the fragment
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = 8 * j + 2 * t4 + (e & 1);
+        float x = s[j][e] * scale;
+        if (k0 + kj >= Sk) {
+          x = -INFINITY;
+        } else if (Mt[kj] <= 0 || (causal && k0 + kj > qrow + 8 * (e >> 1))) {
+          x = kMaskFill;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);  // finite: key k0 < Sk
+      corr[r] = m_run[r] == -INFINITY ? 0.f : expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float p = x == -INFINITY ? 0.f : expf(x - m_run[e >> 1]);
+        psum[e >> 1] += p;      // l sums the unrounded p
+        s[j][e] = round_to<T>(p);  // P enters PV in the input type
+      }
+    }
+    // per-thread partial l (its own keys); the quad sums at the end
+    l_run[0] = l_run[0] * corr[0] + psum[0];
+    l_run[1] = l_run[1] * corr[1] + psum[1];
+#pragma unroll
+    for (int n = 0; n < C::NT; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += P V over the warp's columns. P is the A operand as the S
+    // fragment holds it, its k axis read as keys (2 t4, 2 t4 + 1) for
+    // (t4, t4 + 4); V's rows are taken in the same order.
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const float pf[4] = {s[jj][0], s[jj][2], s[jj][1], s[jj][3]};
+      uint32_t ph[4], pl[4];
+      bmhrl::split_n<SP>(pf, ph, pl);
+      const T* Vj = Vt + 8 * jj * RS;
+#pragma unroll
+      for (int n = 0; n < C::NT; ++n) {
+        const float bf[2] = {to_f(Vj[8 * n]), to_f(Vj[RS + 8 * n])};
+        uint32_t bh[2], bl[2];
+        bmhrl::split_n<SP>(bf, bh, bl);
+        bmhrl::mma_3xtf32<SP, SP>(o[n], ph, pl, bh, bl);
+      }
+    }
   }
 
-  __syncthreads();
-  if (lane == 0) {
+  // the rows' l (the quad's partial sums)
 #pragma unroll
-    for (int r = 0; r < C::RPW; ++r) l_s[warp + 8 * r] = l_run[r];
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  __syncthreads();
+  // normalise; each quad writes 8 adjacent columns of its two rows
+  float l_tot[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_tot[r] = 1.f / fmaxf(l_run[r], 1e-30f);
   const int64_t HD = static_cast<int64_t>(H) * D;
 #pragma unroll
-  for (int n = 0; n < C::NCOL; ++n) {
-    const int c = col + n * C::TPC;
-    if (c >= D) continue;
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    if (row >= Sq) continue;
+    T* orow = out + (static_cast<int64_t>(b) * Sq + row) * HD + h * D + c0 +
+              2 * t4;
 #pragma unroll
-    for (int r = 0; r < C::RPT; ++r) {
-      const int i = rg * C::RPT + r;
-      if (q0 + i < Sq) {
-        const float o = acc[n][r] / fmaxf(l_s[i], 1e-30f);
-        out[(static_cast<int64_t>(b) * Sq + q0 + i) * HD + h * D + c] =
-            from_f<T>(o);
+    for (int n = 0; n < C::NT; ++n) {
+      const float x0 = o[n][2 * r] * l_tot[r], x1 = o[n][2 * r + 1] * l_tot[r];
+      if constexpr (SP) {
+        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x0, x1);
+      } else {
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            bmhrl::pack_bf16x2(x0, x1);
       }
     }
   }
@@ -460,43 +588,23 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* mask,
            void* out, int B, int Sq, int Sk, int H, int64_t q_bs, int64_t q_rs,
            int64_t k_bs, int64_t k_rs, int64_t v_bs, int64_t v_rs,
-           float scale, int causal, cudaStream_t stream) {
-  using C = Cfg<D>;
+           float scale, int causal, int warps, cudaStream_t stream) {
+  using C = Cfg<T, D>;
+  if (warps != 4 && warps != 8) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<T, D>(warps);
+  if (smem > bmhrl::kMaxSmem) return cudaErrorInvalidValue;
   auto kern = flash_simt_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::smem));
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
-  kern<<<grid, kThreads, C::smem, stream>>>(
+  const int BQ = 16 * warps / C::WPQ;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  kern<<<grid, 32 * warps, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(out), Sq, Sk, H, q_bs,
       q_rs, k_bs, k_rs, v_bs, v_rs, scale, causal);
   return cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v,
-               const int* mask, void* out, int B, int Sq, int Sk, int H,
-               int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
-               int64_t v_bs, int64_t v_rs, float scale, int causal,
-               cudaStream_t st) {
-  switch (D) {
-    case 128:
-      return launch<T, 128>(q, k, v, mask, out, B, Sq, Sk, H, q_bs, q_rs,
-                            k_bs, k_rs, v_bs, v_rs, scale, causal, st);
-    case 256:
-      return launch<T, 256>(q, k, v, mask, out, B, Sq, Sk, H, q_bs, q_rs,
-                            k_bs, k_rs, v_bs, v_rs, scale, causal, st);
-    case 384:
-      return launch<T, 384>(q, k, v, mask, out, B, Sq, Sk, H, q_bs, q_rs,
-                            k_bs, k_rs, v_bs, v_rs, scale, causal, st);
-    case 512:
-      return launch<T, 512>(q, k, v, mask, out, B, Sq, Sk, H, q_bs, q_rs,
-                            k_bs, k_rs, v_bs, v_rs, scale, causal, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace simt
@@ -535,7 +643,9 @@ extern "C" int bmhrl_flash_attention_tc(int dtype, const void* q,
   return cudaErrorInvalidValue;
 }
 
-// f32 or bf16 at D in {128, 256, 384, 512}
+// f32 at D in {128, 256, 384, 512}, bf16 at D in {384, 512}; q, k, v
+// 16-byte aligned with strides that are multiples of 16 bytes. warps (4 or
+// 8): the block's warps (ops/attention.py: flash_simt_warps).
 extern "C" int bmhrl_flash_attention_simt(int dtype, const void* q,
                                           const void* k, const void* v,
                                           const int* mask, void* out, int B,
@@ -543,17 +653,29 @@ extern "C" int bmhrl_flash_attention_simt(int dtype, const void* q,
                                           int64_t q_bs, int64_t q_rs,
                                           int64_t k_bs, int64_t k_rs,
                                           int64_t v_bs, int64_t v_rs,
-                                          float scale, int causal,
+                                          float scale, int causal, int warps,
                                           void* stream) {
-  if (bad_dims(B, Sq, Sk, H)) return cudaErrorInvalidValue;
+  const int64_t epc = dtype == bmhrl::kF32 ? 4 : 8;  // elements in 16 bytes
+  if (bad_dims(B, Sq, Sk, H) || reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(k) % 16 ||
+      reinterpret_cast<uintptr_t>(v) % 16 || q_bs % epc || q_rs % epc ||
+      k_bs % epc || k_rs % epc || v_bs % epc || v_rs % epc)
+    return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == bmhrl::kF32)
-    return simt::dispatch_d<float>(D, q, k, v, mask, out, B, Sq, Sk, H, q_bs,
-                                   q_rs, k_bs, k_rs, v_bs, v_rs, scale,
-                                   causal, st);
-  if (dtype == bmhrl::kBF16)
-    return simt::dispatch_d<__nv_bfloat16>(D, q, k, v, mask, out, B, Sq, Sk,
-                                           H, q_bs, q_rs, k_bs, k_rs, v_bs,
-                                           v_rs, scale, causal, st);
+#define BMHRL_FLASH_SIMT(T, DD)                                              \
+  if (D == DD)                                                               \
+    return simt::launch<T, DD>(q, k, v, mask, out, B, Sq, Sk, H, q_bs, q_rs, \
+                               k_bs, k_rs, v_bs, v_rs, scale, causal, warps, \
+                               st);
+  if (dtype == bmhrl::kF32) {
+    BMHRL_FLASH_SIMT(float, 128)
+    BMHRL_FLASH_SIMT(float, 256)
+    BMHRL_FLASH_SIMT(float, 384)
+    BMHRL_FLASH_SIMT(float, 512)
+  } else if (dtype == bmhrl::kBF16) {
+    BMHRL_FLASH_SIMT(__nv_bfloat16, 384)
+    BMHRL_FLASH_SIMT(__nv_bfloat16, 512)
+  }
+#undef BMHRL_FLASH_SIMT
   return cudaErrorInvalidValue;
 }

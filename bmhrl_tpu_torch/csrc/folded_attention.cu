@@ -20,9 +20,12 @@
 // the BYTES it moves: B*S*draw*2 of memory, 8*B*G*draw of q and out, 4*B*S
 // of mask (B=256, G=8: 84.0 MB for the video call (S 128, draw 1024) and
 // 19.1 MB for the audio call (S 256, draw 128), 0.031 ms together at
-// 3.35 TB/s).
+// 3.35 TB/s). An f32 memory doubles the memory's bytes, and 3xTF32 triples
+// the operations (3 * 4*G*S*draw at 495 TFLOP/s): still bound by bytes, at
+// the f32 beam's video call (64 clips, G=32) 50.4 MB (0.0150 ms) against
+// 0.0065 ms of operations (0.0160 ms on the CUDA cores at 67 TFLOP/s).
 //
-// Two routes (ops/attention.py, folded_route):
+// Two routes (ops/attention.py, folded_route), both on the tensor cores:
 //
 // folded_tc_kernel, bf16 memory at draw = 128..1024 step 128 (the serving
 // path):
@@ -62,15 +65,55 @@
 //     draw 128, no spill at any width; shared memory 105,248 bytes a block
 //     at draw 1024 (2 blocks per SM) and 72,800 at draw 128 (3 per SM).
 //
-// folded_kernel, f32 memory and any other width: the first version of this
-// kernel (f32 tiles in shared memory, CUDA cores), q pre-scaled by the
-// wrapper. A block serves one chunk of at most GC queries of one clip (grid
-// (B, ceil(G / GC))), so its shared memory does not grow with G: GC is the
-// largest power of two up to 64 whose block fits kMaxSmem at the memory's
-// width (simt_chunk; ops/attention.py folded_simt_chunk, 16 at draw 1024,
-// 64 at draw 128). Each chunk reads the clip's memory again, from L2 when
-// the chunks run together. G <= GC (every call of the f32 greedy decode)
-// is one chunk, as before.
+// folded_kernel ("simt": f32 memory at any width, bf16 at the widths the
+// route above does not take): the same skeleton on the tensor cores as
+// 3xTF32.
+//   - loads: the memory's rows as they are (f32 or bf16, never widened) in
+//     16-key tiles through a 2-stage cp.async ring, each copy as wide as the
+//     rows' alignment allows (16, 8 or 4 bytes; a bf16 row of odd width or
+//     2-byte alignment is copied element by element). Rows past the block's
+//     keys arrive as zeros, columns up to the warps' 128 nm are zeros; rows
+//     are padded by 16 bytes, so the score fragments (ldmatrix of 8x4 f32
+//     tiles) and the context fragments (rows 2t, 2t + 1 of column g) load
+//     free of bank conflicts;
+//   - 3xTF32: each f32 operand x is split into hi = tf32(x) and lo =
+//     tf32(x - hi), rounded to nearest with ties away from zero (cvt.rna's
+//     result in two integer instructions), each product lo hi + hi lo +
+//     hi hi on mma.sync m16n8k8 tf32 into f32 accumulators (about 22 bits;
+//     none of it single-pass TF32). A bf16 memory is exact in tf32: its lo
+//     terms drop out. The memory tile is the A operand of both products,
+//     S^T = mem q^T and out^T = mem^T p^T (the k axis (t, t + 4) of an
+//     8-key step read as keys (2t, 2t + 1) in both operands, so p's pair is
+//     one float2). Warp w owns columns [w 16 nm, (w + 1) 16 nm) (nm =
+//     ceil(draw / 128)) for both products; q is scaled in f32 as it is
+//     loaded (the plain version's multiply) and stays in registers. The 8
+//     warps' partial scores meet in shared memory, where 16 lanes a query
+//     run the online softmax in f32 on unrounded scores (l sums the
+//     unrounded p, expf); a fully-masked row gives mean(mem) over its keys;
+//   - queries: a block serves QB = 16 of a clip's G queries (8 at nm > 8),
+//     in 8-query n-tiles, skipping n-tiles past G: the q fragments and the
+//     context accumulators (nm QB registers a thread) stay in registers.
+//     The register budget forces the query split: at draw 1024 32 queries
+//     would take 256 registers for them alone, so the f32 beam (G = 32)
+//     runs two blocks a clip (each reads the memory, the second from L2);
+//   - keys: split over a cluster of 1, 2, 4 or 8 blocks where the grid is
+//     small (ops/attention.py folded_simt_split), combined as in the
+//     tensor-core route over distributed shared memory, each query's
+//     weights exp(m_r - M) / L computed once;
+//   - columns: above draw 1664 (nm 13, the widest ring of f32 rows that
+//     fits a block) the columns are cut into ceil(nm / 13) slabs of equal
+//     width (7..13 m-tiles a warp), each served by its own blocks (8
+//     queries a block). A block streams every slab of a key tile through
+//     the ring for the scores, adding their partial scores in shared
+//     memory, its own slab last; it keeps only its own slab's context, so
+//     the memory is read once a slab (from L2 after the first). Any width
+//     runs, as in the JAX function's XLA path;
+//   - ptxas -v (sm_90a), no spill at any class: one slab, f32 nm 1 / 2 /
+//     4 / 8 / 13: 79 / 110 / 153 / 252 / 211 registers, bf16 82 / 116 /
+//     153 / 251 / 212; several slabs (8 queries a block), nm class 8 / 13:
+//     f32 128 / 168, bf16 130 / 170. Shared memory a block (f32): draw 128
+//     28,992 bytes, 1024 143,680, 1664 219,616, 2048 (2 slabs of 1024)
+//     137,696.
 #include <cooperative_groups.h>
 
 #include "async_mma.cuh"
@@ -85,116 +128,472 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// keys per tile: the staged f32 tile stays at or under 64 KB
-int simt_tile(int draw) {
-  const int BS = 16384 / draw;
-  return BS > 64 ? 64 : (BS < 1 ? 1 : BS);
+// ---------------------------------------------------------------------------
+// 3xTF32 route (f32 memory, and bf16 at the widths the bf16 route does not
+// take)
+namespace simt {
+
+namespace cg = cooperative_groups;
+
+constexpr int kBK = 16;       // keys per tile: the m of one score mma
+constexpr int kPS = kBK + 4;  // row stride of the partial scores (f32)
+constexpr int kPK = kBK + 8;  // row stride of p (f32)
+
+// The block's geometry at a memory `draw` wide. The columns are cut into
+// `slabs` slabs of 128 nm columns, each served by blocks of its own: one
+// slab up to draw 1664 (nm 13, the widest ring of f32 rows that fits
+// kMaxSmem), else ceil(ceil(draw / 128) / 13) slabs of equal nm (the last
+// one ragged). Each of the 8 warps owns nm 16-column m-tiles of its slab.
+// The kernel is built for classes of nm (NM, the largest nm of the class:
+// 1, 2, 4, 8, 13) with QB queries a block, so that the q fragments and the
+// context accumulators (NM QB registers a thread) stay in registers: QB 16
+// up to nm 8 (draw 1024), 8 above and wherever there are several slabs
+// (their nm is 7..13). False for draw <= 0.
+bool geometry(int draw, int& NM, int& QB, int& nm, int& slabs) {
+  if (draw <= 0) return false;
+  const int nt = (draw + 127) / 128;
+  slabs = (nt + 12) / 13;
+  nm = (nt + slabs - 1) / slabs;
+  NM = nm <= 2 ? nm : nm <= 4 ? 4 : nm <= 8 ? 8 : 13;
+  QB = nt <= 8 ? 16 : 8;
+  return true;
 }
 
-// shared memory of a block serving G queries
-size_t smem_bytes(int G, int draw, int BS) {
-  return sizeof(float) * (2 * static_cast<size_t>(G) * draw +
-                          static_cast<size_t>(BS) * draw + G * BS + 3 * G) +
-         sizeof(int) * BS;
+// Shared memory of a block, in this order: the ring (2 stages x kBK rows of
+// 128 nm + 16 bytes; after the loop it holds the block's partial context,
+// QB rows of 128 nm + 4 f32, and is as large as the larger of the two), the
+// warps' partial scores (kWarps x QB x kPS f32), p (QB x kPK f32), the mask
+// ring (2 x kBK int), corr, m and l (QB f32 each).
+size_t ring_bytes(int esz, int nm, int QB) {
+  const size_t DP = 128 * nm;
+  const size_t ring = 2 * kBK * (DP + 16 / esz) * esz;
+  const size_t accs = sizeof(float) * QB * (DP + 4);
+  return ring > accs ? ring : accs;
 }
 
-// queries per block: the largest of 64, 32, ..., 1 whose block fits; 0
-// when none does
-int simt_chunk(int draw) {
-  for (int gc = 64; gc >= 1; gc /= 2)
-    if (smem_bytes(gc, draw, simt_tile(draw)) <= bmhrl::kMaxSmem) return gc;
-  return 0;
+size_t smem_bytes(int esz, int nm, int QB) {
+  return ring_bytes(esz, nm, QB) +
+         sizeof(float) * (kWarps * QB * kPS + QB * kPK + 2 * kBK + 3 * QB);
+}
+
+template <typename T, int NM, int NQ, bool WIDE>
+__global__ void __launch_bounds__(kThreads, 1)
+    folded_kernel(const float* __restrict__ q, const T* __restrict__ mem,
+                  const int* __restrict__ mask, float* __restrict__ out,
+                  int G, int S, int draw, int slab_nm, int64_t q_bs,
+                  int64_t q_gs, int64_t q_cs, int64_t m_bs, int64_t m_rs,
+                  float scale, int vec) {
+  constexpr bool SP = sizeof(T) == 4;  // f32 memory: two tf32 terms
+  constexpr int QB = 8 * NQ;
+  constexpr int R = NQ > 2 ? NQ / 2 : 1;  // (query, key) pairs a thread
+  const int nm = WIDE ? slab_nm : (draw + 127) >> 7;
+  const int DP = 128 * nm, CW = 16 * nm;
+  const int RS = DP + 16 / static_cast<int>(sizeof(T)), AS = DP + 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  // the ring's bytes (ring_bytes), in 32-bit arithmetic: the compiler
+  // recomputes these addresses rather than hold them in registers
+  const int ring_b = max(2 * kBK * RS * static_cast<int>(sizeof(T)),
+                         static_cast<int>(sizeof(float)) * QB * AS);
+  float* part = reinterpret_cast<float*>(smem_raw + ring_b);
+  float* Ps = part + kWarps * QB * kPS;
+  int* Ms = reinterpret_cast<int*>(Ps + QB * kPK);
+  float* corr_s = reinterpret_cast<float*>(Ms + 2 * kBK);
+  float* m_s = corr_s + QB;
+  float* l_s = m_s + QB;
+  float* accs = reinterpret_cast<float*>(smem_raw);  // after the loop
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int g0 = blockIdx.y * QB;
+  const int nq = min(NQ, (G - g0 + 7) >> 3);  // n-tiles holding a query
+  const int64_t b = blockIdx.z;
+  // this block's keys: the clip's 16-key tiles split evenly over the cluster
+  const int per = ((S + 15) / 16 + c - 1) / c * 16;
+  const int k_begin = min(S, rank * per), k_end = min(S, k_begin + per);
+  const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
+  const T* mb = mem + b * m_bs;
+  const int* mk = mask == nullptr ? nullptr : mask + b * S;
+  // WIDE: the columns in slabs of DP, blocks x = slab * c + rank; this
+  // block computes the context of slab `own`
+  const int slabs = WIDE ? (draw + DP - 1) / DP : 1;
+  const int own = WIDE ? static_cast<int>(blockIdx.x) / c : 0;
+
+  // one slab: the pad columns [draw, DP) of both stages are zeros (loads
+  // never write them), so 0 * q stays out of the scores
+  if (!WIDE && draw < DP) {
+    const int pad = DP - draw;
+    for (int idx = tid; idx < 2 * kBK * pad; idx += kThreads)
+      ring[(idx / pad) * RS + draw + idx % pad] = T(0.f);
+  }
+  // Unit u of the loop is tile u of the block's keys; WIDE: tile u / slabs,
+  // slab (own + 1 + u % slabs) % slabs, so that a tile's slabs each add
+  // their columns' partial scores and the own slab comes last, its rows
+  // still in the ring for the context product. The 16 rows of a unit are
+  // copied in `vec`-byte pieces (vec 16, 8, 4: cp.async; 2, a bf16 row of
+  // odd width or alignment: plain copies); rows past k_end and (WIDE)
+  // columns past the slab's width arrive as zeros, so 0 * mem stays
+  // finite. A row in `vec`-byte pieces:
+  const int pieces = (WIDE ? DP : draw) * static_cast<int>(sizeof(T)) / vec;
+  const int step_r = kThreads / pieces, step_c = kThreads % pieces;
+  auto load_tile = [&](int u) {
+    const int t = WIDE ? u / slabs : u, js = WIDE ? u - t * slabs : 0;
+    const int k0 = k_begin + t * kBK, valid = min(kBK, k_end - k0);
+    const int st = u & 1;
+    const int s0 = WIDE ? (own + 1 + js) % slabs * DP : 0;
+    // pieces that hold columns of the slab
+    const int held =
+        WIDE ? min(DP, draw - s0) * static_cast<int>(sizeof(T)) / vec : 0;
+    unsigned char* dst = reinterpret_cast<unsigned char*>(ring + st * kBK * RS);
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(
+        mb + k0 * m_rs + s0);
+    const int64_t srs = m_rs * static_cast<int64_t>(sizeof(T));
+    const int drs = RS * static_cast<int>(sizeof(T));
+    // piece idx = tid + kThreads i is (row r, piece c of the row), stepped
+    // without a division
+    int r = tid / pieces, c = tid % pieces;
+    for (; r < kBK; r += step_r, c += step_c) {
+      if (c >= pieces) {
+        c -= pieces;
+        ++r;
+        if (r >= kBK) break;
+      }
+      const int off = c * vec;
+      const bool ok = r < valid && (!WIDE || c < held);
+      unsigned char* d = dst + r * drs + off;
+      const unsigned char* sp = ok ? src + r * srs + off : src;
+      if (vec == 16) {
+        bmhrl::cp_async16(d, sp, ok ? 16 : 0);
+      } else if (vec == 8) {
+        bmhrl::cp_async8(d, sp, ok ? 8 : 0);
+      } else if (vec == 4) {
+        bmhrl::cp_async4(d, sp, ok ? 4 : 0);
+      } else {
+        *reinterpret_cast<T*>(d) =
+            ok ? *reinterpret_cast<const T*>(sp) : T(0.f);
+      }
+    }
+    if (js == 0 && mk != nullptr && tid < kBK) {
+      const bool ok = tid < valid;
+      bmhrl::cp_async4(Ms + (t & 1) * kBK + tid, mk + k0 + (ok ? tid : 0),
+                       ok ? 4 : 0);
+    }
+  };
+  const int n_units = n_tiles * slabs;
+  if (n_units > 0) load_tile(0);
+  bmhrl::cp_async_commit();
+
+  // q^T fragments (B operand of the scores) of the warp's columns, scaled
+  // in f32 as they are loaded: qf[ks][n] = columns (t4, t4 + 4) of k-step
+  // ks, query 8n + g. WIDE: loaded again for each unit's slab
+  float qf[2 * NM][NQ][2];
+#pragma unroll
+  for (int ks = 0; ks < 2 * NM; ++ks) {
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = warp * CW + 8 * ks + t4 + 4 * e, gq = g0 + 8 * n + g;
+        qf[ks][n][e] = ks < 2 * nm && gq < G && col < draw
+                           ? q[b * q_bs + gq * q_gs + col * q_cs] * scale
+                           : 0.f;
+      }
+    }
+  }
+
+  // context accumulators: acc[j][n][e] is column warp*CW + 16j + g + 8(e/2),
+  // query 8n + 2 t4 + e%2
+  float acc[NM][NQ][4];
+#pragma unroll
+  for (int j = 0; j < NM; ++j)
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+      acc[j][n][0] = acc[j][n][1] = acc[j][n][2] = acc[j][n][3] = 0.f;
+  // the online softmax state of pair r of this thread: query
+  // (tid + kThreads r) / 16, held by all 16 lanes of its keys
+  float m_run[R], l_run[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+  }
+
+  for (int u = 0; u < n_units; ++u) {
+    const int t = WIDE ? u / slabs : u, js = WIDE ? u - t * slabs : 0;
+    bmhrl::cp_async_wait<0>();
+    __syncthreads();  // unit u has landed; unit u - 1 is consumed
+    if (u + 1 < n_units) load_tile(u + 1);
+    bmhrl::cp_async_commit();
+    const T* tile = ring + (u & 1) * kBK * RS;
+    const int* mt = Ms + (t & 1) * kBK;
+    const int valid = min(kBK, k_end - k_begin - t * kBK);
+    if constexpr (WIDE) {
+      const int s0 = (own + 1 + js) % slabs * DP;
+#pragma unroll
+      for (int ks = 0; ks < 2 * NM; ++ks) {
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = s0 + warp * CW + 8 * ks + t4 + 4 * e;
+            const int gq = g0 + 8 * n + g;
+            qf[ks][n][e] = ks < 2 * nm && gq < G && col < draw
+                               ? q[b * q_bs + gq * q_gs + col * q_cs] * scale
+                               : 0.f;
+          }
+        }
+      }
+    }
+
+    // partial scores S^T (16 keys x QB queries) over the warp's columns:
+    // d[n][e] is key g + 8(e/2), query 8n + 2 t4 + e%2
+    {
+      float d[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+      const T* a = tile + g * RS + warp * CW + t4;
+      // f32: ldmatrix, lane l giving key row (l & 7) + 8 (l >> 3 & 1) at
+      // column 4 (l >> 4)
+      const uint32_t a_addr = bmhrl::smem_u32(
+          tile + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RS + warp * CW +
+          4 * (lane >> 4));
+#pragma unroll
+      for (int ks = 0; ks < 2 * NM; ++ks) {
+        if (ks < 2 * nm) {
+          float af[4];
+          if constexpr (SP) {
+            bmhrl::ldmatrix_f32_x4(af, a_addr + 32 * ks);
+          } else {
+            af[0] = to_f(a[8 * ks]);
+            af[1] = to_f(a[8 * RS + 8 * ks]);
+            af[2] = to_f(a[8 * ks + 4]);
+            af[3] = to_f(a[8 * RS + 8 * ks + 4]);
+          }
+          uint32_t ah[4], al[4];
+          bmhrl::split_n<SP>(af, ah, al);
+#pragma unroll
+          for (int n = 0; n < NQ; ++n) {
+            if (n < nq) {
+              uint32_t bh[2], bl[2];
+              bmhrl::split_n<true>(qf[ks][n], bh, bl);
+              bmhrl::mma_3xtf32<SP, true>(d[n], ah, al, bh, bl);
+            }
+          }
+        }
+      }
+      float* pw = part + warp * QB * kPS;
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        if (n >= nq) continue;
+        const int qi = 8 * n + 2 * t4;
+        if (WIDE && js > 0) {  // each thread adds into its own entries
+          pw[qi * kPS + g] += d[n][0];
+          pw[(qi + 1) * kPS + g] += d[n][1];
+          pw[qi * kPS + g + 8] += d[n][2];
+          pw[(qi + 1) * kPS + g + 8] += d[n][3];
+        } else {
+          pw[qi * kPS + g] = d[n][0];
+          pw[(qi + 1) * kPS + g] = d[n][1];
+          pw[qi * kPS + g + 8] = d[n][2];
+          pw[(qi + 1) * kPS + g + 8] = d[n][3];
+        }
+      }
+    }
+    if (WIDE && js + 1 < slabs) continue;  // the tile's other slabs first
+    __syncthreads();
+
+    // online softmax in f32 on the unrounded scores: pair (query i, key kj),
+    // the 16 keys of a query in 16 adjacent lanes; l sums the unrounded p
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = (tid + kThreads * r) >> 4, kj = tid & 15;
+      if (i >= 8 * nq) continue;  // whole warps: 8 queries are 128 lanes
+      float x = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) x += part[(w * QB + i) * kPS + kj];
+      const bool in = kj < valid;
+      if (in && mk != nullptr && mt[kj] <= 0) x = kMaskFill;
+      float mx = in ? x : -INFINITY;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_run[r], mx);  // finite: valid >= 1
+      const float corr = m_run[r] == -INFINITY ? 0.f : expf(m_run[r] - m_new);
+      const float p = in ? expf(x - m_new) : 0.f;
+      float sum = p;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l_run[r] = l_run[r] * corr + sum;
+      m_run[r] = m_new;
+      Ps[i * kPK + kj] = p;
+      if (kj == 0) corr_s[i] = corr;
+    }
+    __syncthreads();
+
+    // context: out^T (the warp's columns x QB) = mem tile^T p^T, after the
+    // rescale. The k axis (t4, t4 + 4) of an 8-key step is read as keys
+    // (2 t4, 2 t4 + 1) in both operands: p's two keys are one float2.
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      if (n >= nq) continue;
+      const float c0 = corr_s[8 * n + 2 * t4], c1 = corr_s[8 * n + 2 * t4 + 1];
+#pragma unroll
+      for (int j = 0; j < NM; ++j) {
+        acc[j][n][0] *= c0;
+        acc[j][n][1] *= c1;
+        acc[j][n][2] *= c0;
+        acc[j][n][3] *= c1;
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t ph[NQ][2], pl[NQ][2];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        if (n >= nq) continue;
+        const float2 pv = *reinterpret_cast<const float2*>(
+            Ps + (8 * n + g) * kPK + 8 * ks + 2 * t4);
+        bmhrl::split_tf32(pv.x, ph[n][0], pl[n][0]);
+        bmhrl::split_tf32(pv.y, ph[n][1], pl[n][1]);
+      }
+      const T* a = tile + (8 * ks + 2 * t4) * RS + warp * CW + g;
+#pragma unroll
+      for (int j = 0; j < NM; ++j) {
+        if (j < nm) {
+          const float af[4] = {to_f(a[16 * j]), to_f(a[16 * j + 8]),
+                               to_f(a[RS + 16 * j]),
+                               to_f(a[RS + 16 * j + 8])};
+          uint32_t ah[4], al[4];
+          bmhrl::split_n<SP>(af, ah, al);
+#pragma unroll
+          for (int n = 0; n < NQ; ++n)
+            if (n < nq)
+              bmhrl::mma_3xtf32<SP, true>(acc[j][n], ah, al, ph[n], pl[n]);
+        }
+      }
+    }
+  }
+
+  // the block's partial (m, l, acc) into shared memory
+  bmhrl::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+#pragma unroll
+  for (int j = 0; j < NM; ++j) {
+    if (j < nm) {
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int col = warp * CW + 16 * j + g, qi = 8 * n + 2 * t4;
+        accs[qi * AS + col] = acc[j][n][0];
+        accs[(qi + 1) * AS + col] = acc[j][n][1];
+        accs[qi * AS + col + 8] = acc[j][n][2];
+        accs[(qi + 1) * AS + col + 8] = acc[j][n][3];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = (tid + kThreads * r) >> 4;
+    if (i < QB && (tid & 15) == 0) {
+      m_s[i] = m_run[r];
+      l_s[i] = l_run[r];
+    }
+  }
+  cluster.sync();
+
+  // block `rank` combines its 1/c of the own slab's columns from all c
+  // partials. The weight of partial r for query qi, exp(m_r - M) / L, is
+  // computed once per query into `part` (free after the loop); a block with
+  // no keys has m = -inf, l = 0 and weighs nothing.
+  const int nqb = min(QB, G - g0);  // queries of this block
+  float* wt = part;                 // c x QB weights
+  for (int qi = tid; qi < nqb; qi += kThreads) {
+    float M = -INFINITY;
+    for (int r = 0; r < c; ++r)
+      M = fmaxf(M, cluster.map_shared_rank(m_s, r)[qi]);
+    float L = 0.f;
+    for (int r = 0; r < c; ++r) {
+      const float mr = cluster.map_shared_rank(m_s, r)[qi];
+      const float w = mr == -INFINITY ? 0.f : expf(mr - M);
+      wt[r * QB + qi] = w;
+      L += w * cluster.map_shared_rank(l_s, r)[qi];
+    }
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    for (int r = 0; r < c; ++r) wt[r * QB + qi] *= inv;
+  }
+  __syncthreads();
+  // the own slab's columns [c_own, c_own + w_own)
+  const int c_own = own * DP, w_own = WIDE ? min(DP, draw - c_own) : draw;
+  const int cpr = (w_own + c - 1) / c, col0 = rank * cpr;
+  const int ncol = min(cpr, w_own - col0);
+  for (int idx = tid; idx < nqb * ncol; idx += kThreads) {
+    const int qi = idx / ncol, col = col0 + idx % ncol;
+    float o = 0.f;
+    for (int r = 0; r < c; ++r)
+      o += wt[r * QB + qi] * cluster.map_shared_rank(accs, r)[qi * AS + col];
+    out[(b * G + g0 + qi) * draw + c_own + col] = o;
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+template <typename T, int NM, int NQ, bool WIDE>
+int launch(const float* q, const void* mem, const int* mask, float* out,
+           int B, int G, int S, int draw, int nm, int slabs, int split,
+           int64_t q_bs, int64_t q_gs, int64_t q_cs, int64_t m_bs,
+           int64_t m_rs, float scale, int vec, cudaStream_t stream) {
+  auto kern = folded_kernel<T, NM, NQ, WIDE>;
+  const size_t smem = smem_bytes(sizeof(T), nm, 8 * NQ);
+  if (smem > bmhrl::kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split * slabs, (G + 8 * NQ - 1) / (8 * NQ), B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, q, static_cast<const T*>(mem), mask,
+                           out, G, S, draw, nm, q_bs, q_gs, q_cs, m_bs, m_rs,
+                           scale, vec);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    folded_kernel(const float* __restrict__ q, const T* __restrict__ mem,
-                  const int* __restrict__ mask, float* __restrict__ out,
-                  int G_all, int GC, int S, int draw, int BS) {
-  extern __shared__ __align__(16) float smem[];
-  const int g0 = blockIdx.y * GC;
-  const int G = min(GC, G_all - g0);      // queries of this block
-  float* qs = smem;                       // G x draw
-  float* acc = qs + G * draw;             // G x draw
-  float* tile = acc + G * draw;           // BS x draw
-  float* ps = tile + BS * draw;           // G x BS
-  float* m_s = ps + G * BS;               // G
-  float* l_s = m_s + G;                   // G
-  float* corr_s = l_s + G;                // G
-  int* mask_s = reinterpret_cast<int*>(corr_s + G);  // BS
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t b = blockIdx.x;
-  const float* qb = q + (b * G_all + g0) * draw;
-  const T* memb = mem + b * S * draw;
-  const int* mb = mask + b * S;
-
-  for (int i = tid; i < G * draw; i += kThreads) {
-    qs[i] = qb[i];
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
-  }
-
-  for (int s0 = 0; s0 < S; s0 += BS) {
-    const int ns = min(BS, S - s0);
-    __syncthreads();  // previous tile consumed; q/acc/m/l initialised
-    for (int i = tid; i < ns * draw; i += kThreads)
-      tile[i] = to_f(memb[static_cast<int64_t>(s0) * draw + i]);
-    for (int s = tid; s < ns; s += kThreads) mask_s[s] = mb[s0 + s];
-    __syncthreads();
-
-    // scores: one warp per (group, key) pair, lanes split the draw axis
-    for (int p = warp; p < G * ns; p += kWarps) {
-      const int g = p / ns, s = p % ns;
-      const float* qr = qs + g * draw;
-      const float* mr = tile + s * draw;
-      float dot = 0.f;
-      for (int c = lane; c < draw; c += 32) dot = fmaf(qr[c], mr[c], dot);
-      dot = bmhrl::warp_sum(dot);
-      if (lane == 0) ps[g * BS + s] = mask_s[s] > 0 ? dot : kMaskFill;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per group
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = -INFINITY;
-      for (int s = lane; s < ns; s += 32) mx = fmaxf(mx, ps[g * BS + s]);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, bmhrl::warp_max(mx));
-      float sum = 0.f;
-      for (int s = lane; s < ns; s += 32) {
-        const float e = expf(ps[g * BS + s] - m_new);
-        ps[g * BS + s] = e;
-        sum += e;
-      }
-      sum = bmhrl::warp_sum(sum);
-      if (lane == 0) {
-        const float corr = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-        corr_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // context: thread owns columns c, all groups
-    for (int c = tid; c < draw; c += kThreads) {
-      for (int g = 0; g < G; ++g) {
-        float a = acc[g * draw + c] * corr_s[g];
-        const float* pg = ps + g * BS;
-        for (int s = 0; s < ns; ++s) a = fmaf(pg[s], tile[s * draw + c], a);
-        acc[g * draw + c] = a;
-      }
-    }
-  }
-  __syncthreads();
-  float* ob = out + (b * G_all + g0) * draw;
-  for (int i = tid; i < G * draw; i += kThreads)
-    ob[i] = acc[i] / fmaxf(l_s[i / draw], 1e-30f);
+int dispatch(int NM, int nm, int slabs, const float* q, const void* mem,
+             const int* mask, float* out, int B, int G, int S, int draw,
+             int split, int64_t q_bs, int64_t q_gs, int64_t q_cs,
+             int64_t m_bs, int64_t m_rs, float scale, int vec,
+             cudaStream_t st) {
+#define BMHRL_FOLDED_SIMT(NMC, NQ, WIDE)                                     \
+  if (NM == NMC && (slabs > 1) == WIDE)                                      \
+    return launch<T, NMC, NQ, WIDE>(q, mem, mask, out, B, G, S, draw, nm,    \
+                                    slabs, split, q_bs, q_gs, q_cs, m_bs,    \
+                                    m_rs, scale, vec, st);
+  BMHRL_FOLDED_SIMT(1, 2, false)
+  BMHRL_FOLDED_SIMT(2, 2, false)
+  BMHRL_FOLDED_SIMT(4, 2, false)
+  BMHRL_FOLDED_SIMT(8, 2, false)
+  BMHRL_FOLDED_SIMT(13, 1, false)
+  // several slabs: nm 7..13, 8 queries a block
+  BMHRL_FOLDED_SIMT(8, 1, true)
+  BMHRL_FOLDED_SIMT(13, 1, true)
+#undef BMHRL_FOLDED_SIMT
+  return cudaErrorInvalidValue;
 }
+
+}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // tensor-core route
@@ -491,42 +890,43 @@ int launch(const float* q, const void* mem, const int* mask, float* out,
 
 }  // namespace
 
-// q: (B, G, draw) f32 pre-scaled; mem: (B, S, draw) f32 or bf16; mask:
-// (B, S) int32; out: (B, G, draw) f32. All contiguous. chunk: queries per
-// block, which must be simt_chunk(draw) (ops/attention.py:
-// folded_simt_chunk).
+// 3xTF32 route. q: (B, G, draw) f32, NOT scaled, with element strides
+// (q_bs, q_gs, q_cs); mem: (B, S, draw) f32 or bf16 with unit stride along
+// draw and batch and row strides (m_bs, m_rs); mask: (B, S) int32
+// contiguous, or null (every key attends); out: (B, G, draw) f32
+// contiguous. Any draw > 0 (in column slabs above 1664); chunk (queries
+// per block) must be the geometry's QB and split (the cluster's blocks,
+// over keys) in {1, 2, 4, 8} (ops/attention.py: folded_simt_chunk,
+// folded_simt_slabs, folded_simt_split).
 extern "C" int bmhrl_folded_attend(int dtype, const float* q, const void* mem,
                                    const int* mask, float* out, int B, int G,
-                                   int S, int draw, int chunk, void* stream) {
-  if (B <= 0 || G <= 0 || S <= 0 || draw <= 0 || chunk <= 0 ||
-      chunk != simt_chunk(draw))
+                                   int S, int draw, int chunk, int split,
+                                   int64_t q_bs, int64_t q_gs, int64_t q_cs,
+                                   int64_t m_bs, int64_t m_rs, float scale,
+                                   void* stream) {
+  int NM = 0, QB = 0, nm = 0, slabs = 0;
+  if (B <= 0 || G <= 0 || S <= 0 || B > 65535 ||
+      !simt::geometry(draw, NM, QB, nm, slabs) || chunk != QB ||
+      (G + QB - 1) / QB > 65535 ||
+      (split != 1 && split != 2 && split != 4 && split != 8) ||
+      static_cast<int64_t>(split) * slabs > 0x7fffffff ||
+      (dtype != bmhrl::kF32 && dtype != bmhrl::kBF16))
     return cudaErrorInvalidValue;
-  const int chunks = (G + chunk - 1) / chunk;
-  if (chunks > 65535) return cudaErrorInvalidValue;
-  const int BS = simt_tile(draw);
-  const size_t smem = smem_bytes(G < chunk ? G : chunk, draw, BS);
-  const dim3 grid(B, chunks);
+  // the widest copy that every row start allows
+  const int esz = dtype == bmhrl::kF32 ? 4 : 2;
+  int vec = 16;
+  while (vec > esz &&
+         ((static_cast<int64_t>(draw) * esz) % vec || (m_rs * esz) % vec ||
+          (m_bs * esz) % vec || reinterpret_cast<uintptr_t>(mem) % vec))
+    vec /= 2;
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == bmhrl::kF32) {
-    err = cudaFuncSetAttribute(folded_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    folded_kernel<float><<<grid, kThreads, smem, st>>>(
-        q, static_cast<const float*>(mem), mask, out, G, chunk, S, draw, BS);
-  } else if (dtype == bmhrl::kBF16) {
-    err = cudaFuncSetAttribute(folded_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    folded_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
-        q, static_cast<const __nv_bfloat16*>(mem), mask, out, G, chunk, S,
-        draw, BS);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == bmhrl::kF32)
+    return simt::dispatch<float>(NM, nm, slabs, q, mem, mask, out, B, G, S,
+                                 draw, split, q_bs, q_gs, q_cs, m_bs, m_rs,
+                                 scale, vec, st);
+  return simt::dispatch<bf16>(NM, nm, slabs, q, mem, mask, out, B, G, S,
+                              draw, split, q_bs, q_gs, q_cs, m_bs, m_rs,
+                              scale, vec, st);
 }
 
 // Tensor-core route. q: (B, G, draw) f32, NOT scaled, with element strides

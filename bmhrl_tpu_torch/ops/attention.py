@@ -32,19 +32,59 @@ NEG_INF = -1e9
 MIN_SK = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the largest dynamic shared memory of one block on Hopper (csrc/common.cuh
+# kMaxSmem)
+MAX_SMEM = 232448
+# streaming multiprocessors of one H100 SXM: folded_split,
+# folded_simt_split and flash_simt_warps aim to give each a block
+SMS = 132
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
     """The CUDA kernel that takes flash attention at (dtype, head width d):
-    "tc", the tensor-core kernel, for bf16 at d in {128, 256} (the serving
-    path); "simt", the CUDA-core kernel, for f32 and for bf16 at d in
-    {384, 512}. Raises ValueError for any other pair."""
+    "tc", the bf16 tensor-core kernel, for bf16 at d in {128, 256} (the
+    serving path); "simt", for f32 and for bf16 at d in {384, 512}. Both
+    run on the tensor cores: "simt" (the name is the launch counter's) as
+    3xTF32, each f32 operand split into two tf32 terms (about 22 bits of
+    mantissa, f32 accuracy); a bf16 operand is exact in tf32. Raises
+    ValueError for any other pair."""
     if dtype == torch.bfloat16 and d in (128, 256):
         return "tc"
     if dtype in _DTYPE_CODE and d in (128, 256, 384, 512):
         return "simt"
     raise ValueError(f"flash attention takes float32 or bfloat16 at head "
                      f"width 128..512 step 128, got {dtype} at {d}")
+
+
+# keys per K/V tile of the "simt" flash kernel (csrc/flash_attention.cu BKV)
+FLASH_SIMT_KEYS = 16
+
+
+def flash_simt_smem(dtype: torch.dtype, d: int, warps: int) -> int:
+    """Shared-memory bytes of one "simt" flash block of ``warps`` warps
+    (csrc/flash_attention.cu simt::smem_bytes): its 16 * warps / wpq query
+    rows (wpq = 1 at d <= 256, else 2 warps share 16 queries, each owning
+    half of O's columns), two stages of FLASH_SIMT_KEYS K and V rows, rows
+    padded by 16 bytes, and two stages of the mask."""
+    esz = 4 if dtype == torch.float32 else 2
+    wpq = 1 if d <= 256 else 2
+    rows = 16 * warps // wpq + 4 * FLASH_SIMT_KEYS
+    return esz * (d + 16 // esz) * rows + 4 * 2 * FLASH_SIMT_KEYS
+
+
+def flash_simt_warps(dtype: torch.dtype, d: int, B: int, H: int,
+                     Sq: int) -> int:
+    """Warps of one "simt" flash block: 8 (4 at f32 d=512, where 8 do not
+    fit ``MAX_SMEM``), and 4 at d <= 256 where 8-warp blocks (128 queries)
+    would give under half the SMs a block (B * H * ceil(Sq / 128) <
+    SMS / 2). chip_smoke.py's kernels phase times both at the f32
+    flagship's encoder sites for B=16 and 32 (``f32_flagship_geometry``):
+    4 warps win at B=16's 64-block sites, 8 at every 128-block site."""
+    if flash_simt_smem(dtype, d, 8) > MAX_SMEM:
+        return 4
+    if d <= 256 and B * H * -(-Sq // 128) < SMS // 2:
+        return 4
+    return 8
 
 
 def flash_qualifies(Sk: int, d_k: int) -> bool:
@@ -123,6 +163,13 @@ def _flash_attention_bsd_op(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{what}: the tensor-core kernel copies 16-byte "
                          "rows: q/k/v must be 16-byte aligned with batch "
                          "and row strides that are multiples of 8")
+    if route == "simt":
+        # 16-byte copies: a view that does not start every row on 16 bytes
+        # is copied once
+        epc = 16 // q.element_size()
+        q, k, v = (t if t.data_ptr() % 16 == 0 and t.stride(0) % epc == 0
+                   and t.stride(1) % epc == 0 else t.contiguous()
+                   for t in (q, k, v))
     if mask is None:
         mask = torch.ones(B, Sk, dtype=torch.int32, device=q.device)
     else:
@@ -133,12 +180,16 @@ def _flash_attention_bsd_op(q: torch.Tensor, k: torch.Tensor,
         mask = mask.to(torch.int32).contiguous()
     out = torch.empty(B, Sq, HD, dtype=q.dtype, device=q.device)
     lib = _flash_lib()
-    fn = (lib.bmhrl_flash_attention_tc if route == "tc"
-          else lib.bmhrl_flash_attention_simt)
-    err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             mask.data_ptr(), out.data_ptr(), B, Sq, Sk, H, d, q.stride(0),
-             q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-             1.0 / math.sqrt(d), int(causal), _cuda.stream_of(q))
+    args = (_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), B, Sq, Sk, H, d, q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            1.0 / math.sqrt(d), int(causal))
+    if route == "tc":
+        err = lib.bmhrl_flash_attention_tc(*args, _cuda.stream_of(q))
+    else:
+        err = lib.bmhrl_flash_attention_simt(
+            *args, flash_simt_warps(q.dtype, d, B, H, Sq),
+            _cuda.stream_of(q))
     _cuda.check(lib, err, f"{what} ({route}, B={B}, Sq={Sq}, Sk={Sk}, d={d})")
     _cuda.LAUNCHES[f"flash_attention_{route}"] += 1
     return out
@@ -212,16 +263,14 @@ class FlashAttentionBSD(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-# streaming multiprocessors of one H100 SXM: folded_split aims to give each
-# at least one block
-FOLDED_SMS = 132
-
-
 def folded_route(dtype: torch.dtype, draw: int) -> str:
     """The CUDA kernel that takes folded attention over a (dtype, draw)
-    memory: "tc", the tensor-core kernel, for bf16 at draw 128..1024 step
-    128 (both memories of the serving path); "simt", the CUDA-core kernel,
-    for f32 and every other width. Raises ValueError for another dtype."""
+    memory: "tc", the bf16 tensor-core kernel, for bf16 at draw 128..1024
+    step 128 (both memories of the serving path); "simt" for f32 and every
+    other width. Both run on the tensor cores: "simt" (the name is the
+    launch counter's) as 3xTF32, an f32 memory and q and p each split into
+    two tf32 terms (f32 accuracy), a bf16 memory exact in tf32, at any
+    width (``folded_simt_slabs``). Raises ValueError for another dtype."""
     if dtype == torch.bfloat16 and draw % 128 == 0 and 128 <= draw <= 1024:
         return "tc"
     if dtype in _DTYPE_CODE and draw > 0:
@@ -233,14 +282,14 @@ def folded_route(dtype: torch.dtype, draw: int) -> str:
 def folded_split(B: int, S: int) -> int:
     """Blocks of the thread-block cluster that share one clip's keys on the
     "tc" route: the fewest of 1, 2, 4, 8 that give every SM a block
-    (B * c >= FOLDED_SMS), but never more than half the clip's 16-key
+    (B * c >= SMS), but never more than half the clip's 16-key
     tiles: a block's fixed costs (its queries, the first load, the cluster
     combine) need two tiles to hide behind. chip_smoke.py timed the B=32
     video call (S 128) at 0.0195 ms over 4 blocks and 0.0284 ms over 8,
     one tile each (H100 80GB HBM3, 700 W)."""
     tiles = -(-S // 16)
     c = 1
-    while c < 8 and B * c < FOLDED_SMS and 4 * c <= tiles:
+    while c < 8 and B * c < SMS and 4 * c <= tiles:
         c *= 2
     return c
 
@@ -251,31 +300,48 @@ def folded_tile(draw: int) -> int:
     return max(16, min(64, 16384 // draw // 16 * 16))
 
 
-# the largest dynamic shared memory of one block on Hopper (csrc/common.cuh
-# kMaxSmem)
-MAX_SMEM = 232448
+def folded_simt_split(blocks: int, S: int) -> int:
+    """Blocks of the thread-block cluster that share one clip's keys on the
+    "simt" route, for a grid of ``blocks`` blocks before the split (clips x
+    query blocks a clip): the fewest of 1, 2, 4, 8 that give half the SMs
+    a block (blocks * c >= SMS / 2), at least one 16-key tile a
+    block. At draw 1024 a block holds an SM (251 registers, 144 KB), so a
+    second wave costs what a split would save: the f32 beam's video call
+    (64 clips x 2 query blocks) runs unsplit, the f32 reference decode's
+    calls (8 blocks) over 8 cluster blocks; chip_smoke.py's kernels phase
+    times each against the next split (``split2_ms``, ``reference
+    V_split4_ms``)."""
+    tiles = -(-S // 16)
+    c = 1
+    while c < 8 and blocks * c < SMS // 2 and 2 * c <= tiles:
+        c *= 2
+    return c
 
 
-def folded_simt_smem(G: int, draw: int) -> int:
-    """Shared-memory bytes of one "simt" block serving G queries at the
-    memory width ``draw`` (csrc/folded_attention.cu smem_bytes): the
-    queries and accumulators, a tile of BS f32 key rows (BS = 16384 // draw
-    clamped to 1..64), its scores, the softmax state and the tile's mask."""
-    bs = max(1, min(64, 16384 // draw))
-    return 4 * (2 * G * draw + bs * draw + G * bs + 3 * G) + 4 * bs
+def folded_simt_slabs(draw: int) -> int:
+    """Column slabs of the "simt" folded kernel (csrc/folded_attention.cu
+    simt::geometry): 1 up to draw 1664 (13 16-column tiles a warp, the
+    widest ring of f32 rows that fits ``MAX_SMEM``), else
+    ceil(ceil(draw / 128) / 13) slabs of equal width, each served by blocks
+    of its own that stream the other slabs for the scores. Any width runs,
+    as in the JAX function's XLA path."""
+    tiles = -(-draw // 128)
+    return -(-tiles // 13)
 
 
 def folded_simt_chunk(draw: int) -> int:
-    """Queries per block of the "simt" kernel: the largest of 64, 32, ...,
-    1 whose block fits ``MAX_SMEM`` (16 at draw 1024, 64 at draw 128); a
-    clip's G queries run in ceil(G / chunk) blocks. The C entry point
-    refuses any other value. Raises ValueError where not even one query
-    fits."""
-    for gc in (64, 32, 16, 8, 4, 2, 1):
-        if folded_simt_smem(gc, draw) <= MAX_SMEM:
-            return gc
-    raise ValueError(f"folded attention's simt kernel cannot hold a memory "
-                     f"of width {draw}")
+    """Queries per block of the "simt" folded kernel
+    (csrc/folded_attention.cu simt::geometry). Each of its 8 warps owns
+    nm 16-column tiles of its slab of the memory and keeps its q fragments
+    and context accumulators for all the block's queries in registers: 16
+    queries up to draw 1024 (nm 8; the f32 beam's G = 32 takes two blocks
+    a clip), 8 above (nm 9..13, or several slabs). A clip's G queries run
+    in ceil(G / chunk) blocks. The C entry point refuses any other value.
+    Raises ValueError for draw <= 0."""
+    if draw <= 0:
+        raise ValueError(f"folded attention needs a memory of positive "
+                         f"width, got {draw}")
+    return 16 if draw <= 1024 else 8
 
 
 def folded_attend_plain(q_eff: torch.Tensor, mem: torch.Tensor,
@@ -300,13 +366,17 @@ def folded_attend(q_eff: torch.Tensor, mem: torch.Tensor,
     (B, G, draw) f32; a fully-masked row gives mean(mem) over its own S
     keys.
 
-    On the card the route is ``folded_route(mem.dtype, draw)``. The "tc"
-    kernel takes q_eff (f32, any strides) and the scale as they are, a
-    memory with unit stride along draw, 16-byte aligned, batch and row
-    strides multiples of 8, and an int32 mask: one launch, nothing copied.
-    The "simt" kernel serves a clip's queries in blocks of
-    ``folded_simt_chunk(draw)``, so any G fits its shared memory. The
-    call is the op ``bmhrl::folded_attend``.
+    On the card the route is ``folded_route(mem.dtype, draw)``. Both
+    kernels take q_eff (f32, any strides) and the scale as they are and
+    scale q in f32 as they load it. The "tc" kernel takes a memory with
+    unit stride along draw, 16-byte aligned, batch and row strides
+    multiples of 8: one launch, nothing copied. The "simt" kernel (3xTF32
+    on the tensor cores) takes any memory with unit stride along draw
+    (copying each row as widely as its alignment allows), at any width in
+    ``folded_simt_slabs(draw)`` column slabs, serves a clip's queries in
+    blocks of ``folded_simt_chunk(draw)``, so any G runs, and splits a
+    clip's keys over ``folded_simt_split(B * blocks a clip, S)`` cluster
+    blocks (blocks a clip: query blocks times slabs). The call is the op ``bmhrl::folded_attend``.
     """
     return torch.ops.bmhrl.folded_attend(q_eff, mem, mask, scale)
 
@@ -333,6 +403,7 @@ def _folded_attend_op(q_eff: torch.Tensor, mem: torch.Tensor,
         mask = mask.to(torch.int32).contiguous()
     out = torch.empty(B, G, draw, dtype=torch.float32, device=mem.device)
     lib = _folded_lib()
+    mask_ptr = None if mask is None else mask.data_ptr()
     if route == "tc":
         if q_eff.dtype != torch.float32:
             raise ValueError(f"{what}: the tensor-core kernel takes float32 "
@@ -345,24 +416,24 @@ def _folded_attend_op(q_eff: torch.Tensor, mem: torch.Tensor,
                              "that are multiples of 8")
         split = folded_split(B, S)
         err = lib.bmhrl_folded_attend_tc(
-            q_eff.data_ptr(), mem.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(), B, G,
+            q_eff.data_ptr(), mem.data_ptr(), mask_ptr, out.data_ptr(), B, G,
             S, draw, split, folded_tile(draw), *q_eff.stride(), mem.stride(0),
             mem.stride(1), scale, _cuda.stream_of(mem))
         _cuda.check(lib, err, f"{what} (tc, B={B}, G={G}, S={S}, "
                               f"draw={draw}, split={split})")
     else:
-        if mask is None:
-            mask = torch.ones(B, S, dtype=torch.int32, device=mem.device)
-        q = (q_eff.float() * scale).contiguous()
-        mem = mem.contiguous()
+        q = q_eff.float()
+        if mem.stride(2) != 1:
+            mem = mem.contiguous()
         chunk = folded_simt_chunk(draw)
+        split = folded_simt_split(
+            B * -(-G // chunk) * folded_simt_slabs(draw), S)
         err = lib.bmhrl_folded_attend(
-            _DTYPE_CODE[mem.dtype], q.data_ptr(), mem.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), B, G, S, draw, chunk,
-            _cuda.stream_of(mem))
+            _DTYPE_CODE[mem.dtype], q.data_ptr(), mem.data_ptr(), mask_ptr,
+            out.data_ptr(), B, G, S, draw, chunk, split, *q.stride(),
+            mem.stride(0), mem.stride(1), scale, _cuda.stream_of(mem))
         _cuda.check(lib, err, f"{what} (simt, B={B}, G={G}, S={S}, "
-                              f"draw={draw}, chunk={chunk})")
+                              f"draw={draw}, chunk={chunk}, split={split})")
     _cuda.LAUNCHES[f"folded_attend_{route}"] += 1
     return out
 
@@ -377,11 +448,13 @@ _cuda.register_op(
 def _flash_lib():
     lib = _cuda.library("flash_attention")
     P, I, I64, F = _cuda.P, _cuda.I, _cuda.I64, _cuda.F
-    for fn in (lib.bmhrl_flash_attention_tc, lib.bmhrl_flash_attention_simt):
-        if fn.argtypes is None:
-            fn.argtypes = [I, P, P, P, P, P, I, I, I, I, I,
-                           I64, I64, I64, I64, I64, I64, F, I, P]
-            fn.restype = I
+    if lib.bmhrl_flash_attention_tc.argtypes is None:
+        args = [I, P, P, P, P, P, I, I, I, I, I, I64, I64, I64, I64, I64, I64,
+                F, I]
+        lib.bmhrl_flash_attention_tc.argtypes = args + [P]
+        lib.bmhrl_flash_attention_simt.argtypes = args + [I, P]
+        lib.bmhrl_flash_attention_tc.restype = I
+        lib.bmhrl_flash_attention_simt.restype = I
     return lib
 
 
@@ -389,7 +462,8 @@ def _folded_lib():
     lib = _cuda.library("folded_attention")
     P, I, I64, F = _cuda.P, _cuda.I, _cuda.I64, _cuda.F
     if lib.bmhrl_folded_attend.argtypes is None:
-        lib.bmhrl_folded_attend.argtypes = [I, P, P, P, P, I, I, I, I, I, P]
+        lib.bmhrl_folded_attend.argtypes = [
+            I, P, P, P, P, I, I, I, I, I, I, I64, I64, I64, I64, I64, F, P]
         lib.bmhrl_folded_attend.restype = I
         lib.bmhrl_folded_attend_tc.argtypes = [
             P, P, P, P, I, I, I, I, I, I, I64, I64, I64, I64, I64, F, P]

@@ -5,28 +5,37 @@
 Phases, each of which raises at its first failure:
 
 1. build: compile every kernel of csrc/ (one nvcc per source, in parallel);
+   no attention kernel may spill (ptxas -v, every instantiated width);
 2. kernels: each kernel at the flagship's shapes against its plain PyTorch
    version on the same card inputs, with timings of the kernel, the plain
    version, one PyTorch library call computing the same function, and the
-   card's bound. Flash attention in bf16 takes the tensor-core route and in
-   f32 the CUDA-core route (ops.attention.flash_route), each with edge
-   cases (ragged Sq and Sk, causal, no mask, d = 128 and 512) and a
-   fully-masked row that must equal mean(V); the CUDA-core route is also
-   checked and timed at the reference decode's own shapes. Folded
-   attention with a bf16 memory takes the tensor-core route and with an f32
-   one the CUDA-core route (ops.attention.folded_route), at the serve's
-   audio and video shapes for B=256 and B=32, the long-source shapes and
-   (tensor core) edge cases, each fully-masked row equal to mean(mem); a
-   CUDA graph of one tensor-core call must hold one kernel and nothing
-   else. The CUDA-core folded route also at the f32 beam's video call (64
-   clips, S 128, draw 1024, G = 8, 24, 32, 64: several blocks a clip above
-   ``folded_simt_chunk``), within 1e-5, G = 32 timed. The critic cells
-   (f32) run over packed weights and are also held against the unpacked
-   cell math.
+   card's bound. Flash attention in bf16 at d 128/256 takes the bf16
+   tensor-core route and in f32 the 3xTF32 route (``simt``, also bf16 at
+   d 384/512; ops.attention.flash_route), each with edge cases (ragged Sq
+   and Sk, one key, causal, no mask, d = 128 to 512, 4- and 8-warp
+   blocks) and a fully-masked row that must equal mean(V); the 3xTF32 route
+   is also checked and timed at the reference decode's own shapes and at
+   the f32 flagship's encoder and long-source sites (kernel, plain,
+   SDPA, the bound max(bytes / 3.35 TB/s, 3 x operations / 495 TFLOP/s)
+   and the CUDA-core bound operations / 67 TFLOP/s), and every block
+   geometry it can take is timed at the flagship's sites for B=32 and 16. Folded attention with
+   a bf16 memory at draw 128..1024 takes the tensor-core route and with an
+   f32 one the 3xTF32 route (ops.attention.folded_route), at the serve's
+   audio and video shapes for B=256 and B=32 (the f32 pair recorded), the
+   long-source shapes and edge cases of both routes (3xTF32: G = 4, 12,
+   32, 64 at draw 64, 128, 300, 1024, 1152 and, in column slabs, 2048,
+   2500, 19200, in f32 and bf16, one key,
+   S = 37 and 129, cluster blocks without keys), each fully-masked row
+   equal to mean(mem); a CUDA graph of one tensor-core call must hold one
+   kernel and nothing else. The 3xTF32 folded route also at the f32 beam's
+   video call (64 clips, S 128, draw 1024, G = 8, 24, 32, 64: several
+   blocks a clip above ``folded_simt_chunk``), within 1e-5, G = 32 timed.
+   The critic cells (f32) run over packed weights and are also held
+   against the unpacked cell math.
    Kernel times are device times of calls replayed from a CUDA graph;
 3. reference: a small f32 model decoded on the card through the kernels
    and on the CPU through the plain versions: identical tokens, and
-   probabilities within 1e-4. Its launches are the CUDA-core flash and
+   probabilities within 1e-4. Its launches are the 3xTF32 flash and
    folded routes' counts (the bf16 serve never takes those routes);
 4. serve: the flagship BMHrlAgent (Config's dims, vocabulary 10172, bf16,
    random weights from a seed loaded through the JAX-layout loader)
@@ -53,7 +62,7 @@ Phases, each of which raises at its first failure:
    once per token (``torch.cuda.set_sync_debug_mode``). Folded attention
    at the beam shape (64 clips, G=32) against the repeated layout (256
    rows, G=8), the library call and the bound; the flagship in f32 decoded
-   by beam search at W=4 (G = 32 on the CUDA-core folded route, launches
+   by beam search at W=4 (G = 32 on the 3xTF32 folded route, launches
    counted) agrees with its plain-version run on >= 99% of tokens;
    clips/s of beam W=4 (B=64), sampled (B=256) and full-buffer greedy
    (B=32) decode;
@@ -66,7 +75,11 @@ Phases, each of which raises at its first failure:
    a CaptionServer given the same weights through ``load_jax_params``;
    ``cli.single_video.main`` gives the server's caption of the same clip;
    ``--mode AHRL`` and ``--mode VHRL`` serve (main paths: every
-   tensor-core kernel and cell launched, no CUDA-core route); small f32
+   tensor-core kernel and cell launched, no 3xTF32 route); the f32
+   flagship (``--compute_dtype float32``) through the same CLI on the 64
+   requests, the 3xTF32 routes' main path (their launches and the cells',
+   no tensor-core route; words equal to the plain versions' run on >= 99%
+   of positions; clips/s beside the bf16 greedy serve); small f32
    AHRL and VHRL models decode identically on card and CPU (greedy,
    sampled, beam W=2, full-buffer); greedy clips/s at B=256 of AHRL, VHRL
    and the bimodal flagship; an AHRL warmstart step at B=16 (ms/step,
@@ -75,7 +88,7 @@ Phases, each of which raises at its first failure:
    attention's gradient (the autograd Function: kernel forward, the JAX
    package's recompute as backward) against autograd through the plain
    version at the training shapes, bf16 (tensor-core route) and f32
-   (CUDA-core route); a small f32 model trained on the card and on the CPU
+   (3xTF32 route); a small f32 model trained on the card and on the CPU
    with the same draws (two warmstart steps, one RL update per phase):
    losses and updated parameters agree; then the flagship (Config's dims,
    vocabulary 10172, bf16, random weights from seed 0) on synthetic
@@ -117,7 +130,7 @@ Phases, each of which raises at its first failure:
    ``critic.cp`` installed gives the trained module's logits through the
    cell kernels, 1e-4) and one ``run_training --mode verbose`` pass;
 11. proposals: the event-proposal generator. A small f32 model (2 heads
-   of d=128: the CUDA-core flash route; Sv 300, Sa 800, B 4, one video
+   of d=128: the 3xTF32 flash route; Sv 300, Sa 800, B 4, one video
    without features) on card and CPU with the same weights and draws:
    predictions (segments relative to their scale) and losses within 1e-5,
    one train_step (dropout on, the clip triggered) to parameters within
@@ -135,7 +148,7 @@ Phases, each of which raises at its first failure:
    on its checkpoint (the best epoch's proposals again); ``dense_caption``
    over 16 of them with the flagship captioner from a reference .pt: the
    slice's main path (launches zeroed just before and read just after:
-   every tensor-core kernel and both cells, no CUDA-core route), equal to
+   every tensor-core kernel and both cells, no 3xTF32 route), equal to
    the direct predict + postprocess + ``CaptionServer.caption``;
 12. export: AOT serving bundles (``serve_export``). The four kernel
    entry points, ``torch.library`` custom ops, pass
@@ -192,9 +205,11 @@ from unittest import mock
 
 import numpy as np
 
-# the port's peak rates on one H100 SXM (dense; NVIDIA data sheet)
+# the port's peak rates on one H100 SXM (dense; NVIDIA data sheet). An f32
+# product on the "simt" routes is three tf32 products (3xTF32) on the
+# tensor cores: its operations run at most at a third of the tf32 rate
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "3xtf32": 495e12 / 3}
 
 VOC = 10172  # the flagship's vocabulary; its other dims are Config's
 SMALL = dict(voc_size=40, d_video=128, d_audio=128, d_model=256,
@@ -291,11 +306,11 @@ class Kernel:
     """Accumulates one kernel's line of the final ``kernels`` record. Its
     times sum the calls of one unit of the path that launches it: the
     tensor-core flash, the four bf16 encoder sites of one layer of the
-    serve at B=256, Sv=128, Sa=256; the CUDA-core flash, the four f32
+    serve at B=256, Sv=128, Sa=256; the 3xTF32 flash, the four f32
     encoder sites of one layer of the reference decode (B=8, d=128,
     Sv=128, Sa=160); the tensor-core folded attention, the audio and video
     calls of one layer's token step of the serve at B=256 (bf16 memory);
-    the CUDA-core folded attention, the same pair in the reference decode
+    the 3xTF32 folded attention, the same pair in the reference decode
     (B=8, G=4, draw 128, f32); LSTM, the four cells of one token; GRU, the
     two cells of one token (f32, B=256). Times are device times of calls
     replayed from a CUDA graph (``time_ms``)."""
@@ -415,7 +430,7 @@ def phase_kernels(K):
     # ---- flash attention: the 4 encoder sites of one layer at the serving
     # shape (main path), the long-source shape, and edge cases. bf16 at
     # d = 256 takes the tensor-core route (flash_attention_tc), f32 the
-    # CUDA-core route (flash_attention_simt); ops.attention.flash_route.
+    # 3xTF32 route (flash_attention_simt); ops.attention.flash_route.
     H, d = 4, 256
     HD = H * d
     B = 256
@@ -439,6 +454,7 @@ def phase_kernels(K):
         route_rec[route].err(e)
         return e, route
 
+    f32_sites = {}  # the f32 flagship's sites on the 3xTF32 route
     for site, Sq, Sk in main_sites + long_sites:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(B, Sq, HD, dtype=dtype)
@@ -461,17 +477,66 @@ def phase_kernels(K):
             isz = q.element_size()
             nbytes = (2 * B * Sq * HD + 2 * B * Sk * HD) * isz + B * Sk * 4
             ops = 4.0 * B * H * Sq * Sk * d
-            kind = TAG[dtype]
+            kind = "3xtf32" if route == "simt" else TAG[dtype]
             bms, by = bound_ms(nbytes, ops, kind)
             emit({"kernel": f"flash_attention_{route}", "case": site, "B": B,
-                  "Sq": Sq, "Sk": Sk, "H": H, "d": d, "dtype": kind,
+                  "Sq": Sq, "Sk": Sk, "H": H, "d": d, "dtype": TAG[dtype],
                   "max_abs_err": e, "tol": TOL[dtype], "kernel_ms": ms,
                   "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
                   "bound_by": by})
+            if route == "simt":
+                f32_sites[site] = dict(
+                    Sq=Sq, Sk=Sk, ms=ms, plain_ms=pms, library_ms=lms,
+                    bound_ms=bms, bound_by=by,
+                    cuda_core_bound_ms=ops / PEAK_OPS["f32"] * 1e3,
+                    max_abs_err=e)
             if route == "tc" and "long" not in site:
                 route_rec[route].add_main_shape(ms, pms, lms, nbytes, ops,
                                                 kind)
             del q, k, v
+    K["flash_simt"].rec["f32_flagship_sites"] = f32_sites
+    K["flash_simt"].rec["f32_flagship_4_sites"] = {
+        key: sum(f32_sites[site][key] for site, _, _ in main_sites)
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                    "cuda_core_bound_ms")}
+
+    def geometry_times(q, k, v, mask, Hh):
+        """ms of one 3xTF32 flash call with blocks of 8 and of 4 warps (8 only
+        where they fit), each held against the plain version;
+        flash_simt_warps's choice is named."""
+        Bq, Sq, HDq = q.shape
+        dq = HDq // Hh
+        want = att.flash_attention_bsd_plain(q, k, v, mask, Hh)
+        out = {"chosen": att.flash_simt_warps(q.dtype, dq, Bq, Hh, Sq)}
+        for w in (8, 4):
+            if att.flash_simt_smem(q.dtype, dq, w) > att.MAX_SMEM:
+                continue
+            with mock.patch.object(att, "flash_simt_warps",
+                                   lambda *a, w=w: w):
+                got = att.flash_attention_bsd(q, k, v, mask, Hh)
+                torch.cuda.synchronize()
+                K["flash_simt"].err(check_close(
+                    f"flash {w} warps", got, want, TOL[q.dtype]))
+                out[f"warps{w}_ms"] = time_ms(
+                    lambda: att.flash_attention_bsd(q, k, v, mask, Hh))
+        return out
+
+    # flash_simt_warps at the f32 flagship's grids of at most one 8-warp
+    # block an SM: the encoder sites of the f32 CLI serve's batches (B=32)
+    # and of f32 training (B=16), 8 and 4 warps timed
+    for Bg in (32, 16):
+        geo = {}
+        for site, Sq, Sk in main_sites:
+            q, k, v = (randn(Bg, s_, HD) for s_ in (Sq, Sk, Sk))
+            lens = torch.randint(Sk // 2, Sk + 1, (Bg,), generator=g,
+                                 device=dev)
+            mask = torch.arange(Sk, device=dev)[None] < lens[:, None]
+            mask[1] = False
+            geo[site] = geometry_times(q, k, v, mask, H)
+            del q, k, v
+        K["flash_simt"].rec[f"f32_flagship_geometry_B{Bg}"] = geo
+        emit({"kernel": "flash_attention_simt", "case": "geometry",
+              "B": Bg, "H": H, "d": d, "dtype": "f32", "sites": geo})
     # the DETR's memory cross-attention (Sk = 128 memory rows, bf16): the
     # token step of the greedy serve (32 clips, one query each) and of the
     # B=256 greedy rate, the beam step (64 clips, the W = 4 beams of a clip
@@ -513,7 +578,7 @@ def phase_kernels(K):
               "bound_by": by})
         del q, k, v
     K["flash_tc"].rec["detr_cross_attention"] = detr_sites
-    # the CUDA-core route's own path: the four encoder sites of one layer of
+    # the 3xTF32 route's own path: the four encoder sites of one layer of
     # the reference phase's small f32 decode (B = 8, 2 heads of d = 128,
     # Sv = 128, Sa = 160), each with a fully-masked row
     Hr, dr, Br = 2, 128, 8
@@ -535,22 +600,36 @@ def phase_kernels(K):
             qh, kh, vh, attn_mask=m4))
         nbytes = (2 * Br * Sq + 2 * Br * Sk) * Hr * dr * 4 + Br * Sk * 4
         ops = 4.0 * Br * Hr * Sq * Sk * dr
-        bms, by = bound_ms(nbytes, ops, "f32")
+        bms, by = bound_ms(nbytes, ops, "3xtf32")
         emit({"kernel": f"flash_attention_{route}",
               "case": f"reference {site}", "B": Br, "Sq": Sq, "Sk": Sk,
               "H": Hr, "d": dr, "dtype": "f32", "max_abs_err": e,
               "tol": TOL[torch.float32], "kernel_ms": ms, "plain_ms": pms,
-              "library_ms": lms, "bound_ms": bms, "bound_by": by})
-        route_rec[route].add_main_shape(ms, pms, lms, nbytes, ops, "f32")
+              "library_ms": lms, "bound_ms": bms, "bound_by": by,
+              "warps": att.flash_simt_warps(q.dtype, dr, Br, Hr, Sq)})
+        route_rec[route].add_main_shape(ms, pms, lms, nbytes, ops, "3xtf32")
+        if site == "V<-V":
+            K["flash_simt"].rec["reference_VV_geometry"] = geometry_times(
+                q, k, v, mask, Hr)
+        K["flash_simt"].rec["cuda_core_bound_ms"] = (
+            K["flash_simt"].rec.get("cuda_core_bound_ms", 0.0)
+            + ops / PEAK_OPS["f32"] * 1e3)
     # edge cases, each with a fully-masked row where there is a mask: Sq and
     # Sk not multiples of the tiles (tensor core: 128 queries, 64 keys;
-    # CUDA core: 32 keys), causal, no mask, d = 128 and d = 512
+    # 3xTF32: 16 keys a warp, 16-128 queries a block), one key, causal, no
+    # mask, d = 128 to 512 (bf16 at 128 and 256 on the tensor-core route).
+    # At B = 4 the 3xTF32 route takes 4-warp blocks at d <= 256 (its grid
+    # is small), 8 at d 384 and bf16 d 512, 4 at f32 d 512
     for Sq, Sk, causal, use_mask, dh in (
             (37, 130, False, True, 256), (65, 129, False, True, 256),
             (300, 300, True, True, 256), (64, 129, False, False, 256),
             (300, 800, False, True, 256), (65, 300, False, True, 128),
             (37, 800, True, True, 128), (300, 130, False, True, 128),
-            (65, 130, False, True, 512)):
+            (65, 130, False, True, 512), (1, 1, False, True, 128),
+            (37, 20, True, True, 128), (300, 1, False, True, 256),
+            (65, 20, False, True, 256), (16, 33, True, True, 384),
+            (100, 17, False, True, 512), (1, 130, True, True, 512),
+            (129, 257, True, False, 384), (200, 45, False, True, 512)):
         Hh = HD // dh
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (randn(4, s, HD, dtype=dtype) for s in (Sq, Sk, Sk))
@@ -564,12 +643,14 @@ def phase_kernels(K):
             emit({"kernel": f"flash_attention_{route}", "case": "edge",
                   "Sq": Sq, "Sk": Sk, "d": dh, "causal": causal,
                   "mask": use_mask, "dtype": TAG[dtype], "max_abs_err": e,
-                  "tol": TOL[dtype]})
+                  "tol": TOL[dtype], "warps":
+                  att.flash_simt_warps(dtype, dh, 4, Hh, Sq)
+                  if route == "simt" else None})
 
     # ---- folded attention: both branches of one layer-step (G = 2 stacks x
     # 4 heads) at the serving shapes, B = 256 and 32, and the long-source
     # shapes. bf16 memory takes the tensor-core route (folded_attend_tc), f32
-    # the CUDA-core route (folded_attend_simt); ops.attention.folded_route.
+    # the 3xTF32 route (folded_attend_simt); ops.attention.folded_route.
     folded_rec = {"tc": K["folded_tc"], "simt": K["folded_simt"]}
 
     def folded_case(B, G, S, draw, dtype, use_mask=True, qscale=0.05):
@@ -601,11 +682,26 @@ def phase_kernels(K):
         folded_rec[route].err(e)
         return e, route
 
+    def folded_vs_f64(qe, mem, mask, scale):
+        """Largest errors of the kernel and of the f32 plain version against
+        the same function in float64."""
+        s_ = (qe.double() * scale) @ mem.double().transpose(1, 2)
+        s_ = s_.masked_fill(~(mask > 0)[:, None, :], att.NEG_INF)
+        p_ = torch.exp(s_ - s_.amax(-1, keepdim=True))
+        ref = (p_ @ mem.double()) / p_.sum(-1, keepdim=True)
+        got = att.folded_attend(qe, mem, mask, scale)
+        want = att.folded_attend_plain(qe, mem, mask, scale)
+        return {"kernel_vs_f64": (got.double() - ref).abs().max().item(),
+                "plain_vs_f64": (want.double() - ref).abs().max().item()}
+
     G = 8
     scale = 1.0 / math.sqrt(d)
     for Bf in (B, 32):
         pair = dict(kernel_ms=0.0, eager_ms=0.0, plain_ms=0.0,
                     library_ms=0.0, bound_ms=0.0)
+        # the f32 greedy decode's pair on the 3xTF32 route
+        f32_pair = dict(kernel_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                        bound_ms=0.0, cuda_core_bound_ms=0.0)
         for case, S, draw in (("V", 128, 1024), ("A", 256, 128),
                               ("V long", 300, 1024), ("A long", 800, 128)):
             for dtype in (torch.float32, torch.bfloat16):
@@ -614,14 +710,23 @@ def phase_kernels(K):
                                         mem, mask_i, scale)
                 ms, ems, pms, lms, nbytes, ops = folded_times(qe, mem, mask_i,
                                                               scale)
-                bms, by = bound_ms(nbytes, ops, "f32")
+                bms, by = bound_ms(nbytes, ops,
+                                   "3xtf32" if route == "simt" else "f32")
                 emit({"kernel": f"folded_attend_{route}", "case": case,
                       "B": Bf, "G": G, "S": S, "draw": draw,
                       "dtype": TAG[dtype],
                       "split": att.folded_split(Bf, S) if route == "tc"
-                      else None, "max_abs_err": e, "tol": 1e-4,
+                      else att.folded_simt_split(
+                          Bf * -(-G // att.folded_simt_chunk(draw)), S),
+                      "max_abs_err": e, "tol": 1e-4,
                       "kernel_ms": ms, "eager_ms": ems, "plain_ms": pms,
                       "library_ms": lms, "bound_ms": bms, "bound_by": by})
+                if route == "simt" and "long" not in case:
+                    for key, v in (("kernel_ms", ms), ("plain_ms", pms),
+                                   ("library_ms", lms), ("bound_ms", bms),
+                                   ("cuda_core_bound_ms",
+                                    ops / PEAK_OPS["f32"] * 1e3)):
+                        f32_pair[key] += v
                 if route == "tc" and "long" not in case:
                     for key, v in (("kernel_ms", ms), ("eager_ms", ems),
                                    ("plain_ms", pms), ("library_ms", lms),
@@ -633,7 +738,10 @@ def phase_kernels(K):
                 del qe, mem, mask_i
         emit({"kernel": "folded_attend_tc", "case": "A + V pair", "B": Bf,
               **pair})
-    # the CUDA-core route's own path: the audio and video calls of one
+        emit({"kernel": "folded_attend_simt", "case": "f32 A + V pair",
+              "B": Bf, **f32_pair})
+        K["folded_simt"].rec[f"f32_greedy_pair_B{Bf}"] = f32_pair
+    # the 3xTF32 route's own path: the audio and video calls of one
     # layer-step of the reference phase's small f32 decode (B = 8, G = 2
     # stacks x 2 heads, draw 128, Sv = 128, Sa = 160), each with a
     # fully-masked row
@@ -642,15 +750,23 @@ def phase_kernels(K):
         e, route = folded_check(case, qe, mem, mask_i, 1.0 / math.sqrt(128))
         ms, ems, pms, lms, nbytes, ops = folded_times(qe, mem, mask_i,
                                                       1.0 / math.sqrt(128))
-        bms, by = bound_ms(nbytes, ops, "f32")
+        bms, by = bound_ms(nbytes, ops, "3xtf32")
         emit({"kernel": f"folded_attend_{route}", "case": case, "B": 8,
               "G": 4, "S": S, "draw": 128, "dtype": "f32",
+              "split": att.folded_simt_split(8, S),
               "max_abs_err": e, "tol": 1e-4, "kernel_ms": ms,
               "eager_ms": ems, "plain_ms": pms, "library_ms": lms,
               "bound_ms": bms, "bound_by": by})
-        K["folded_simt"].add_main_shape(ms, pms, lms, nbytes, ops, "f32")
-    # the CUDA-core route at the f32 beam's video call: 64 clips, S 128,
-    # draw 1024, G = 2 stacks x 4 heads x W beams for W = 1, 3, 4, 8; above
+        K["folded_simt"].add_main_shape(ms, pms, lms, nbytes, ops, "3xtf32")
+        # folded_simt_split's choice (8 blocks a clip) against 4
+        with mock.patch.object(att, "folded_simt_split", lambda b, s: 4):
+            K["folded_simt"].rec[f"{case}_split4_ms"] = folded_times(
+                qe, mem, mask_i, 1.0 / math.sqrt(128))[0]
+        K["folded_simt"].rec["cuda_core_bound_ms"] = (
+            K["folded_simt"].rec.get("cuda_core_bound_ms", 0.0)
+            + ops / PEAK_OPS["f32"] * 1e3)
+    # the 3xTF32 route at the f32 beam's video call: 64 clips, S 128, draw
+    # 1024, G = 2 stacks x 4 heads x W beams for W = 1, 3, 4, 8; above
     # ops.attention.folded_simt_chunk(1024) = 16 queries a clip takes
     # several blocks. Within 1e-5 of the plain version; G = 32 (W = 4) is
     # timed
@@ -660,7 +776,7 @@ def phase_kernels(K):
         want = att.folded_attend_plain(qe, mem, mask_i, scale)
         torch.cuda.synchronize()
         if att.folded_route(mem.dtype, 1024) != "simt":
-            raise AssertionError("an f32 memory left the CUDA-core route")
+            raise AssertionError("an f32 memory left the 3xTF32 route")
         e = check_close(f"folded f32 G={Gb}", got, want, 1e-5)
         e = max(e, check_close(f"folded f32 G={Gb} masked row = mean(mem)",
                                got[63], mem[63].mean(0).expand(Gb, -1),
@@ -671,13 +787,49 @@ def phase_kernels(K):
         if Gb == 32:
             ms, ems, pms, lms, nbytes, ops = folded_times(qe, mem, mask_i,
                                                           scale)
-            bms, by = bound_ms(nbytes, ops, "f32")
+            bms, by = bound_ms(nbytes, ops, "3xtf32")
+            # folded_simt_split's choice (1 at 128 blocks) against 2
+            with mock.patch.object(att, "folded_simt_split", lambda b, s: 2):
+                split2 = folded_times(qe, mem, mask_i, scale)[0]
             rec.update(kernel_ms=ms, eager_ms=ems, plain_ms=pms,
-                       library_ms=lms, bound_ms=bms, bound_by=by)
+                       library_ms=lms, bound_ms=bms, bound_by=by,
+                       cuda_core_bound_ms=ops / PEAK_OPS["f32"] * 1e3,
+                       split=att.folded_simt_split(
+                           64 * -(-Gb // att.folded_simt_chunk(1024)), 128),
+                       split2_ms=split2)
             K["folded_simt"].rec["f32_beam_V_B64_G32"] = rec
         emit({"kernel": "folded_attend_simt", "case": "f32 beam V", "B": 64,
               "S": 128, "draw": 1024, **rec})
         del qe, mem, mask_i, got, want
+    # 3xTF32 edge cases, f32 and bf16 (bf16 at draw 128 and 1024 takes the
+    # tensor-core route), each with a fully-masked row: G = 4, 12, 32, 64
+    # (ragged and several query blocks) at draw 64, 128, 300 (rows not
+    # 16-byte aligned in bf16), 1024, 1152 (8-query blocks), 2048 (two
+    # column slabs), 2500 (two slabs, the last ragged, bf16 rows 8-byte
+    # aligned) and 19200 (12 slabs) over S = 129 keys (3 clips split over 8
+    # cluster blocks: 3 of them without keys); one key and S = 37 (not a
+    # multiple of 16) at G = 12
+    for Ge in (4, 12, 32, 64):
+        for draw in (64, 128, 300, 1024, 1152, 2048, 2500, 19200):
+            for dtype in (torch.float32, torch.bfloat16):
+                for S in ((129, 1, 37) if Ge == 12 else (129,)):
+                    qe, mem, mask_i = folded_case(3, Ge, S, draw, dtype,
+                                                  qscale=0.3)
+                    e, route = folded_check("edge", qe, mem, mask_i,
+                                            1.0 / 16)
+                    rec = {"kernel": f"folded_attend_{route}", "case": "edge",
+                           "B": 3, "G": Ge, "S": S, "draw": draw,
+                           "dtype": TAG[dtype], "split":
+                           att.folded_split(3, S) if route == "tc" else
+                           att.folded_simt_split(
+                               3 * -(-Ge // att.folded_simt_chunk(draw))
+                               * att.folded_simt_slabs(draw), S),
+                           "max_abs_err": e, "tol": 1e-4}
+                    if draw > 1664:
+                        # several column slabs: kernel and plain version
+                        # each against float64
+                        rec.update(folded_vs_f64(qe, mem, mask_i, 1.0 / 16))
+                    emit(rec)
     # tensor-core edge cases, each with a fully-masked row where there is a
     # mask: one key, S not a multiple of 16, blocks of the cluster with no
     # keys (S = 129 over 4, 260 over 8, 300 over 8), long S, B = 1, G = 4,
@@ -827,7 +979,7 @@ def make_feats(B, Sv, Sa, d_v, d_a, device, seed=0):
 
 def phase_reference(K):
     """Small f32 model: kernels on the card vs plain versions on the CPU.
-    f32 attention takes the CUDA-core flash and folded routes, so this is
+    f32 attention takes the 3xTF32 flash and folded routes, so this is
     the run whose launches count for flash_attention_simt and
     folded_attend_simt (the bf16 serve never takes those routes)."""
     import torch
@@ -940,12 +1092,12 @@ def phase_serve(K):
         raise AssertionError("a request got no sentence")
     if stats.padded_rows == 0:
         raise AssertionError("the run had no padded tail batch")
-    # every kernel of the bf16 serving path launched; the CUDA-core flash
+    # every kernel of the bf16 serving path launched; the 3xTF32 flash
     # and folded routes are not on it (their launches are counted in the
     # reference phase)
     for name in ("flash_attention_simt", "folded_attend_simt"):
         if launches.pop(name):
-            raise AssertionError(f"the bf16 serve took the CUDA-core route "
+            raise AssertionError(f"the bf16 serve took the 3xTF32 route "
                                  f"{name}")
     for name, n in launches.items():
         K[name].rec["launches"] = n
@@ -1220,7 +1372,7 @@ def folded_beam_shape(K):
 def f32_beam_flagship(K):
     """The flagship in f32 (``--compute_dtype float32``) decoded by beam
     search at W=4 (4 clips, Sv 128, Sa 256, 30 tokens): the W beams fold
-    into the CUDA-core folded route's query groups, G = 2 x 4 x 4 = 32 at
+    into the 3xTF32 folded route's query groups, G = 2 x 4 x 4 = 32 at
     the 1024-wide video memory, which takes two blocks a clip
     (``folded_simt_chunk``). Its launches are counted; its tokens agree
     with the same decode through the plain versions on >= 99% of
@@ -1359,7 +1511,7 @@ def phase_decode_modes(K, model):
             for name in ("flash_attention_simt", "folded_attend_simt"):
                 if launches.pop(name):
                     raise AssertionError(f"the bf16 {mode} serve took the "
-                                         f"CUDA-core route {name}")
+                                         f"3xTF32 route {name}")
             for name, n in launches.items():
                 K[name].rec[f"launches_{mode}_serve"] = n
                 if n <= 0:
@@ -1500,11 +1652,58 @@ def run_cli(main, argv):
 
 
 def check_serve_launches(what, launches):
-    """Every kernel of the bf16 serving path launched, no CUDA-core route."""
+    """Every kernel of the bf16 serving path launched, no 3xTF32 route."""
     bad = {n: v for n, v in launches.items()
            if (v <= 0) != n.endswith("_simt")}
     if bad:
         raise AssertionError(f"{what} launches: {launches}")
+
+
+def f32_cli_serve(K, main, argv, root):
+    """The f32 flagship (``--compute_dtype float32``) through the serving
+    CLI on the 64 requests, greedy at B=32: a main path of the 3xTF32
+    routes (launches zeroed just before and read just after: flash and
+    folded attention on their ``simt`` routes and both cells, no
+    tensor-core route), its words against the same CLI run with the plain
+    versions (``plain_kernels``) on >= 99% of positions, its clips/s beside
+    the bf16 CLI serve run just before it (the same weights and requests).
+    """
+    words, stats, launches = {}, {}, {}
+    for how, dtype in (("bf16", "bfloat16"), ("kernels", "float32"),
+                       ("plain", "float32")):
+        out = os.path.join(root, f"sub_{how}.json")
+        with plain_kernels() if how == "plain" else contextlib.nullcontext():
+            st, _, launches[how] = run_cli(main, argv + [
+                "--out", out, "--compute_dtype", dtype])
+        stats[how] = st.summary()
+        with open(out) as f:
+            words[how] = [s["sentence"].split()
+                          for _, segs in sorted(json.load(f)["results"]
+                                                .items()) for s in segs]
+    same = total = 0
+    for a, b in zip(words["kernels"], words["plain"]):
+        same += sum(x == y for x, y in zip(a, b))
+        total += max(len(a), len(b))
+    agree = same / max(total, 1)
+    got = launches["kernels"]
+    emit({"phase": "entry_points", "cli": "serve_captions --compute_dtype "
+          "float32", "answered": len(words["kernels"]),
+          "word_agreement_with_plain": agree, "min_required": 0.99,
+          "positions": total, "stats": stats["kernels"],
+          "plain_stats": stats["plain"], "launches": got,
+          "clips_per_sec_f32": stats["kernels"]["clips_per_sec"],
+          "clips_per_sec_bf16_same_call": stats["bf16"]["clips_per_sec"],
+          "example": [" ".join(w) for w in words["kernels"][:3]]})
+    if len(words["kernels"]) != 64 or not all(words["kernels"]):
+        raise AssertionError("the f32 CLI serve left a request unanswered")
+    if (got["flash_attention_tc"] or got["folded_attend_tc"]
+            or min(got["flash_attention_simt"], got["folded_attend_simt"],
+                   got["lstm_cell"], got["gru_cell"]) <= 0):
+        raise AssertionError(f"f32 CLI serve launches: {got}")
+    if agree < 0.99:
+        raise AssertionError(f"f32 CLI serve agrees with plain on {agree}")
+    for name, n in got.items():
+        K[name].rec["launches_cli_f32_serve"] = n
 
 
 def small_unimodal_card_vs_cpu():
@@ -1512,7 +1711,7 @@ def small_unimodal_card_vs_cpu():
     the CPU (plain versions), the same draws fed to both: greedy, sampled
     (temperature 0.8, top_k 5, top_p 0.9), beam W=2 and the full-buffer
     greedy decode. Identical tokens, probabilities and scores within 1e-4;
-    the card run launches the CUDA-core flash and folded routes."""
+    the card run launches the 3xTF32 flash and folded routes."""
     import torch
 
     from bmhrl_tpu_torch.models.unimodal import UnimodalAgent
@@ -1681,6 +1880,9 @@ def phase_entry_points(K, model):
             key = "launches_cli_serve" if not extra else "launches_cli_beam"
             for name, n in launches.items():
                 K[name].rec[key] = n
+
+        f32_cli_serve(K, serve_captions.main, base + [
+            "--torch_checkpoint", pt], root)
 
         # single_video on a clip whose lengths are its buckets' (128, 256):
         # the server runs the same shapes at B=1
@@ -1864,7 +2066,7 @@ def flash_grad_checks(K):
     autograd through the plain version at the training shapes: bf16 at
     B=16, 4 heads of d=256 (tensor-core route; Sq 31 against Sk 128 and
     256, Sq = Sk 128, 256, 300, 800) and f32 at the reference decode's
-    B=8, 2 heads of d=128 (CUDA-core route). As in the model, q, k and v
+    B=8, 2 heads of d=128 (3xTF32 route). As in the model, q, k and v
     are column views of one merged projection where Sq = Sk (self
     attention), and k and v of one merged K/V projection otherwise; the
     gradients compared are those of the merged leaves. Row 1 is fully
@@ -1955,7 +2157,7 @@ def flash_grad_checks(K):
 
 
 def train_card_vs_cpu():
-    """A small f32 model (2 heads of d=128: the CUDA-core flash route)
+    """A small f32 model (2 heads of d=128: the 3xTF32 flash route)
     trained on the card and on the CPU with the same draws (generators on
     the host): two warmstart steps, one RL rollout + update per phase.
     Losses within 1e-4 relative, every parameter within 1e-5."""
@@ -2594,7 +2796,7 @@ def phase_train_loop(K):
             for name, n in launches.items():
                 K[name].rec["launches_train_loop"] = n
             # the bf16 path: every tensor-core kernel and both cells
-            # (validation decodes through the folded kernel), no CUDA-core
+            # (validation decodes through the folded kernel), no 3xTF32
             # route
             bad = {n: v for n, v in launches.items()
                    if (v <= 0) != n.endswith("_simt")}
@@ -2645,7 +2847,7 @@ def detr_feats(B, d_v, device, seed, Sv=128, Sa=256):
 
 def small_detr_card_vs_cpu():
     """The small f32 DETR (default and pre-goal) decoded on the card
-    (kernels: the CUDA-core flash and folded routes) and on the CPU (plain
+    (kernels: the 3xTF32 flash and folded routes) and on the CPU (plain
     versions) with the same draws, in every mode: identical tokens. Then
     one ``detr_update`` on each device from the same state and inputs:
     losses and parameters within 1e-5. It runs with cuDNN's TF32 at
@@ -3152,7 +3354,7 @@ def segments_err(got, want):
 
 
 def small_proposals_card_vs_cpu():
-    """A small f32 proposal generator (2 heads of d=128: the CUDA-core
+    """A small f32 proposal generator (2 heads of d=128: the 3xTF32
     flash route) on the card and on the CPU with the same weights: the
     predictions and losses within 1e-5 (segments relative to their
     scale), then one train_step with dropout from the same draws and the
@@ -3516,7 +3718,7 @@ def proposal_clis(K, serve_model):
     the flagship captioner from a reference .pt (seed-0 weights,
     vocabulary 10172): the slice's main path (launches zeroed just before
     and read just after: every tensor-core kernel and both cells, no
-    CUDA-core route), equal to a direct ``ProposalStepFactory.predict`` +
+    3xTF32 route), equal to a direct ``ProposalStepFactory.predict`` +
     ``postprocess`` + ``CaptionServer.caption`` with the serve phase's
     model (the same weights)."""
     import torch
@@ -3661,7 +3863,7 @@ def bundle_vs_live(K, model, cfg, itos, reqs, bs, what, key, beam_width=1,
     tails row-padded to ``bs``), each serve a main path with its launches
     counted (the bundle's go to the ``kernels`` line as
     ``launches_bundle_<key>``). Gates: the same submission, the same
-    launches per kernel route, no CUDA-core route, and every tensor-core
+    launches per kernel route, no 3xTF32 route, and every tensor-core
     kernel launched (both cells too, except for the DETR, which has none
     on its default path). With ``turns``, clips/s of both servers taking
     turns (median). Returns the bundle's server."""
@@ -3730,7 +3932,7 @@ def bundle_vs_live(K, model, cfg, itos, reqs, bs, what, key, beam_width=1,
     if l_bundle != l_live:
         raise AssertionError(f"{what}: launches {l_bundle} != live "
                              f"{l_live}")
-    # the routes a family's decode never takes: the CUDA-core ones; the
+    # the routes a family's decode never takes: the 3xTF32 ones; the
     # DETR's default path has no cells, its pre-goal path (full buffer)
     # no folded attention
     idle = {"flash_attention_simt", "folded_attend_simt"}
@@ -4101,7 +4303,7 @@ def mesh_world_of_one(K, model, paths):
     for name, n in launches.items():
         K[name].rec["launches_mesh_train"] = n
     # the teacher-forced steps: flash and the critic's cells (no decode,
-    # so no folded attention), no CUDA-core route
+    # so no folded attention), no 3xTF32 route
     idle = {"flash_attention_simt", "folded_attend_simt", "folded_attend_tc"}
     if any((v <= 0) != (n in idle) for n, v in launches.items()):
         raise AssertionError(f"mesh training launches: {launches}")
@@ -4395,6 +4597,33 @@ def profile_train(sf, state, batch):
 
 
 # --------------------------------------------------------------------------
+def kernel_records():
+    """The ``Kernel`` record of each kernel of csrc/, by short name and by
+    its launch counter's name. The kernels phase alone, after a build:
+    ``python3 -c "import chip_smoke as c; from bmhrl_tpu_torch.ops import
+    _cuda; _cuda.build(); c.phase_kernels(c.kernel_records())"``."""
+    src = "bmhrl_tpu_torch/csrc/"
+    flash_tpu = "bmhrl_tpu/ops/attention.py:89 (+ :269)"
+    folded_tpu = "bmhrl_tpu/ops/attention.py:568"
+    K = {"flash_tc": Kernel("flash_attention_tc", src + "flash_attention.cu",
+                            flash_tpu),
+         "flash_simt": Kernel("flash_attention_simt",
+                              src + "flash_attention.cu", flash_tpu),
+         "folded_tc": Kernel("folded_attend_tc", src + "folded_attention.cu",
+                             folded_tpu),
+         "folded_simt": Kernel("folded_attend_simt",
+                               src + "folded_attention.cu", folded_tpu),
+         "lstm_cell": Kernel("lstm_cell", src + "critic_cells.cu",
+                             "bmhrl_tpu/ops/critic_kernels.py:64"),
+         "gru_cell": Kernel("gru_cell", src + "critic_cells.cu",
+                            "bmhrl_tpu/ops/critic_kernels.py:87")}
+    K["flash_attention_tc"] = K["flash_tc"]
+    K["flash_attention_simt"] = K["flash_simt"]
+    K["folded_attend_tc"] = K["folded_tc"]
+    K["folded_attend_simt"] = K["folded_simt"]
+    return K
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -4427,39 +4656,25 @@ def main() -> int:
                         or "entry function" in ln]
                     for n in _cuda.SOURCES
                     if (_cuda.BUILD_DIR / f"{n}.log").exists()}})
-    # the tensor-core folded kernel keeps everything in registers
-    entry, spills = "", {}
-    for ln in (_cuda.BUILD_DIR / "folded_attention.log").read_text() \
-            .splitlines():
-        if "entry function" in ln:
-            entry = ln.split("'")[1]
-        elif "spill" in ln and "folded_tc_kernel" in entry:
-            spills[entry] = ln.strip()
-    emit({"phase": "build", "folded_tc_kernel_spills": spills})
-    if not spills or any("0 bytes spill stores, 0 bytes spill loads"
-                         not in ln for ln in spills.values()):
-        raise AssertionError(f"folded_tc_kernel spills: {spills}")
+    # every attention kernel, at every instantiated width, keeps its state
+    # in registers: no spill
+    spills = {}
+    for src in ("flash_attention", "folded_attention"):
+        entry = ""
+        for ln in (_cuda.BUILD_DIR / f"{src}.log").read_text().splitlines():
+            if "entry function" in ln:
+                entry = ln.split("'")[1]
+            elif "spill" in ln and entry:
+                spills[entry] = ln.strip()
+    emit({"phase": "build", "attention_kernel_spills": spills})
+    kinds = ("flash_tc_kernel", "flash_simt_kernel", "folded_tc_kernel",
+             "folded_kernel")
+    if (not all(any(k in e for e in spills) for k in kinds)
+            or any("0 bytes spill stores, 0 bytes spill loads" not in ln
+                   for ln in spills.values())):
+        raise AssertionError(f"attention kernel spills: {spills}")
 
-    src = "bmhrl_tpu_torch/csrc/"
-    flash_tpu = "bmhrl_tpu/ops/attention.py:89 (+ :269)"
-    folded_tpu = "bmhrl_tpu/ops/attention.py:568"
-    K = {"flash_tc": Kernel("flash_attention_tc", src + "flash_attention.cu",
-                            flash_tpu),
-         "flash_simt": Kernel("flash_attention_simt",
-                              src + "flash_attention.cu", flash_tpu),
-         "folded_tc": Kernel("folded_attend_tc", src + "folded_attention.cu",
-                             folded_tpu),
-         "folded_simt": Kernel("folded_attend_simt",
-                               src + "folded_attention.cu", folded_tpu),
-         "lstm_cell": Kernel("lstm_cell", src + "critic_cells.cu",
-                             "bmhrl_tpu/ops/critic_kernels.py:64"),
-         "gru_cell": Kernel("gru_cell", src + "critic_cells.cu",
-                            "bmhrl_tpu/ops/critic_kernels.py:87")}
-    K["flash_attention_tc"] = K["flash_tc"]
-    K["flash_attention_simt"] = K["flash_simt"]
-    K["folded_attend_tc"] = K["folded_tc"]
-    K["folded_attend_simt"] = K["folded_simt"]
-
+    K = kernel_records()
     made = {}
     phases = (("kernels", lambda: phase_kernels(K)),
               ("reference", lambda: phase_reference(K)),

@@ -150,9 +150,31 @@ def test_folded_split_bounds():
             tiles = -(-S // 16)
             assert c in (1, 2, 4, 8) and c <= tiles, (B, S, c)
             assert c == 1 or 2 * c <= tiles, (B, S, c)
-            assert (B * c >= att.FOLDED_SMS or c == 8
+            assert (B * c >= att.SMS or c == 8
                     or 4 * c > tiles), (B, S, c)
-            assert c == 1 or B * (c // 2) < att.FOLDED_SMS, (B, S, c)
+            assert c == 1 or B * (c // 2) < att.SMS, (B, S, c)
+
+
+@pytest.mark.parametrize("blocks,S,c", [
+    (128, 128, 1), (256, 256, 1), (66, 128, 1), (65, 128, 2), (8, 128, 8),
+    (8, 160, 8), (8, 20, 2), (8, 1, 1), (32, 128, 4), (3, 129, 8),
+    (16, 48, 2),
+])
+def test_folded_simt_split(blocks, S, c):
+    assert att.folded_simt_split(blocks, S) == c
+
+
+def test_folded_simt_split_bounds():
+    """A power of two, at most 8, with at least one 16-key tile a block;
+    the fewest that give half the SMs a block where those bounds allow."""
+    for blocks in range(1, 300):
+        for S in (1, 15, 16, 17, 33, 64, 100, 128, 129, 160, 256, 800):
+            c = att.folded_simt_split(blocks, S)
+            tiles = -(-S // 16)
+            assert c in (1, 2, 4, 8) and c <= tiles, (blocks, S, c)
+            assert (blocks * c >= att.SMS // 2 or c == 8
+                    or 2 * c > tiles), (blocks, S, c)
+            assert c == 1 or blocks * (c // 2) < att.SMS // 2
 
 
 def test_folded_tile():

@@ -289,28 +289,114 @@ def test_kernel_sources_ship_with_the_package():
     assert {f"{n}.cu" for n in _cuda.SOURCES} | {"common.cuh"} <= srcs
 
 
+def _simt_folded_widths():
+    """(dtype, width) pairs the "simt" folded route takes: every width up to
+    4096 (one slab up to 1664, two or three above) and some far wider
+    ones, f32 at each, bf16 outside 128..1024 step 128."""
+    for draw in list(range(1, 4097)) + [19200, 19370, 1 << 16, 1 << 20]:
+        yield torch.float32, draw
+        if att.folded_route(torch.bfloat16, draw) == "simt":
+            yield torch.bfloat16, draw
+
+
+def _folded_simt_smem(draw, esz):
+    """Shared-memory bytes of one "simt" folded block
+    (csrc/folded_attention.cu simt::smem_bytes): the larger of a 2-stage
+    ring of 16 key rows (128 nm columns + 16 bytes) and the partial context
+    after the loop (chunk rows of 128 nm + 4 f32), then the 8 warps'
+    partial scores (chunk x 20 f32 each), p (chunk x 24 f32), the mask ring
+    (2 x 16 int) and corr, m and l (chunk f32 each); nm is the slab's
+    16-column tiles a warp."""
+    qb = att.folded_simt_chunk(draw)
+    tiles = -(-draw // 128)
+    nm = -(-tiles // att.folded_simt_slabs(draw))
+    dp = 128 * nm
+    return (max(2 * 16 * (dp + 16 // esz) * esz, 4 * qb * (dp + 4))
+            + 4 * (8 * qb * 20 + qb * 24 + 32 + 3 * qb))
+
+
 def test_folded_simt_chunk_keeps_shared_memory_in_bounds():
     """The "simt" folded kernel's block fits the card's 232,448 bytes of
-    shared memory at every width from 1 to 1024 and every G up to the f32
-    beam's 2 stacks x 4 heads x 16 beams, and a chunk is never smaller
-    than the f32 greedy decode's G = 8 at these widths (one block per
-    clip there, as before the chunking)."""
+    shared memory at every (dtype, width) its route takes: one column slab
+    of at most 13 16-column tiles a warp (draw 1664), and above that
+    ceil(tiles / 13) slabs of 7..13 tiles each that cover the memory. Any
+    G up to 64 (the f32 beam's 2 stacks x 4 heads x 8 beams) is served in
+    ceil(G / chunk) blocks; a chunk holds the f32 greedy decode's G = 8 in
+    one block."""
     assert att.MAX_SMEM == 232448
-    for draw in range(1, 1025):
+    for dtype, draw in _simt_folded_widths():
+        esz = 4 if dtype == torch.float32 else 2
         chunk = att.folded_simt_chunk(draw)
-        assert chunk >= 8 and chunk & (chunk - 1) == 0, draw
-        assert att.folded_simt_smem(chunk, draw) <= att.MAX_SMEM, draw
-        if chunk < 64:  # the next power of two would not fit
-            assert att.folded_simt_smem(2 * chunk, draw) > att.MAX_SMEM
-        for G in range(1, 2 * 4 * 16 + 1):
-            assert att.folded_simt_smem(min(G, chunk), draw) <= att.MAX_SMEM
-    # the flagship's memories: video 1024 wide, audio 128
-    assert att.folded_simt_chunk(1024) == 16
-    assert att.folded_simt_chunk(128) == 64
-    assert att.folded_simt_smem(16, 1024) == 197888
-    assert att.folded_simt_smem(8, 1024) == 131744
-    # the unchunked block of the W = 3 and 4 beams at draw 1024 did not fit
-    assert att.folded_simt_smem(24, 1024) == 264032 > att.MAX_SMEM
-    assert att.folded_simt_smem(32, 1024) == 330176
-    with pytest.raises(ValueError, match="cannot hold"):
-        att.folded_simt_chunk(1 << 20)
+        assert chunk == (16 if draw <= 1024 else 8), draw
+        tiles = -(-draw // 128)
+        slabs = att.folded_simt_slabs(draw)
+        nm = -(-tiles // slabs)
+        assert (slabs == 1) == (draw <= 1664), draw
+        assert nm <= 13 and (slabs == 1 or nm >= 7), draw
+        assert (slabs - 1) * 128 * nm < draw <= slabs * 128 * nm, draw
+        assert _folded_simt_smem(draw, esz) <= att.MAX_SMEM, draw
+    for chunk in (8, 16):
+        for G in range(1, 65):
+            blocks = -(-G // chunk)
+            assert blocks * chunk >= G and blocks <= 8, (chunk, G)
+    # exact bytes
+    for draw, dtype, want in ((1024, torch.float32, 143680),
+                              (128, torch.float32, 28992),
+                              (1152, torch.float32, 154080),
+                              (1664, torch.float32, 219616),
+                              (2048, torch.float32, 137696),
+                              (19200, torch.float32, 219616),
+                              (300, torch.bfloat16, 37184),
+                              (1152, torch.bfloat16, 80352),
+                              (2048, torch.bfloat16, 72160)):
+        esz = 4 if dtype == torch.float32 else 2
+        assert _folded_simt_smem(draw, esz) == want, (draw, dtype)
+    # one more tile of f32 rows would not fit: 13 is the widest slab
+    assert 2 * 16 * (128 * 14 + 4) * 4 + 4 * (8 * 8 * 20 + 8 * 24 + 32 + 24) \
+        > att.MAX_SMEM
+    assert [att.folded_simt_slabs(d) for d in (1, 1664, 1665, 2048, 3328,
+                                               3329, 19200)] \
+        == [1, 1, 2, 2, 2, 3, 12]
+    with pytest.raises(ValueError, match="positive width"):
+        att.folded_simt_chunk(0)
+
+
+def test_flash_simt_geometry_keeps_shared_memory_in_bounds():
+    """The "simt" flash kernel's block fits 232,448 bytes of shared memory
+    at every (dtype, d) its route takes and every grid: 8 warps (4 at f32
+    d=512, where 8 do not fit), and 4 at d <= 256 where 8-warp blocks would
+    give under half the SMs a block."""
+    routes = [(torch.float32, d) for d in (128, 256, 384, 512)] + [
+        (torch.bfloat16, d) for d in (384, 512)]
+    for dtype, d in routes:
+        assert att.flash_route(dtype, d) == "simt"
+        for B in (1, 2, 4, 8, 16, 33, 64, 256):
+            for H in (1, 2, 4, 8):
+                for Sq in (1, 16, 37, 128, 160, 300, 800):
+                    w = att.flash_simt_warps(dtype, d, B, H, Sq)
+                    assert w in (4, 8)
+                    assert att.flash_simt_smem(dtype, d, w) <= att.MAX_SMEM
+                    if w == 4 and not (dtype == torch.float32 and d == 512):
+                        assert d <= 256 and B * H * -(-Sq // 128) < 66
+    # exact bytes: Q rows, 2 stages of K and V, 2 of the mask
+    assert att.flash_simt_smem(torch.float32, 128, 8) == 101504
+    assert att.flash_simt_smem(torch.float32, 128, 4) == 67712
+    assert att.flash_simt_smem(torch.float32, 256, 8) == 199808
+    assert att.flash_simt_smem(torch.float32, 256, 4) == 133248
+    assert att.flash_simt_smem(torch.float32, 384, 8) == 198784
+    assert att.flash_simt_smem(torch.float32, 512, 8) == 264320 \
+        > att.MAX_SMEM
+    assert att.flash_simt_smem(torch.float32, 512, 4) == 198272
+    assert att.flash_simt_smem(torch.bfloat16, 384, 8) == 100480
+    assert att.flash_simt_smem(torch.bfloat16, 512, 8) == 133248
+    # the f32 flagship's encoder sites (B=256; the CLI serve's B=32; f32
+    # training's B=16: 64 blocks at Sq 128, 128 at Sq 256), the reference
+    # decode's, a long one, bf16 at d 384
+    assert att.flash_simt_warps(torch.float32, 256, 256, 4, 128) == 8
+    assert att.flash_simt_warps(torch.float32, 256, 32, 4, 128) == 8
+    assert att.flash_simt_warps(torch.float32, 256, 16, 4, 128) == 4
+    assert att.flash_simt_warps(torch.float32, 256, 16, 4, 256) == 8
+    assert att.flash_simt_warps(torch.float32, 128, 8, 2, 160) == 4
+    assert att.flash_simt_warps(torch.float32, 256, 256, 4, 800) == 8
+    assert att.flash_simt_warps(torch.float32, 512, 256, 4, 128) == 4
+    assert att.flash_simt_warps(torch.bfloat16, 384, 2, 2, 65) == 8
