@@ -25,10 +25,12 @@ submission (``serve.CaptionServer(mesh=...)``).
 ``--export_bundle DIR`` exports, instead of serving, the decode programs
 (``serve_export``) for exactly the shapes this request set plans at
 ``--batch_size``, greedy or with ``--beam_width`` / ``--length_penalty``,
-on ``--device``; ``--from_bundle DIR`` serves such a bundle on
-``--device`` (the platform it was exported on) without building a model.
-Neither takes ``--mesh`` > 1 yet: the step program computes the Manager's
-cross-row goals inside itself.
+on ``--device``, in this one process whatever ``--mesh`` says (the
+programs take any rows a rank holds); ``--from_bundle DIR`` serves such a
+bundle on ``--device`` (the platform it was exported on) without building
+a model, with ``--mesh n`` on n ranks, each loading the bundle
+(``serve_export.ExportedCaptionServer(mesh=...)``; a batch size n does
+not divide exits before the ranks start).
 Prints one JSON stats line (clips/s, latency percentiles, shape count) and
 returns the stats (the manifest after an export).
 """
@@ -37,24 +39,12 @@ from __future__ import annotations
 import argparse
 import json
 
-BUNDLE_MESH = (
-    "--from_bundle/--export_bundle with --mesh > 1 is not ported yet: a "
-    "bundle's step program computes the Manager's cross-row goals "
-    "(frontier_goal) inside itself, so splitting its rows over ranks "
-    "needs the other ranks' boundary flags as program inputs; serve the "
-    "live model with --mesh, or a bundle on one device")
-
 
 def refuse_unported(args) -> None:
-    """Exit with a message for a bundle over ranks, for two sources of
-    weights at once, and for a ``--checkpoint_dir`` that is not a
-    checkpoint of the port."""
+    """Exit with a message for two sources of weights at once and for a
+    ``--checkpoint_dir`` that is not a checkpoint of the port."""
     from bmhrl_tpu_torch.utils.checkpoint import refuse_orbax
 
-    if getattr(args, "mesh", 1) > 1 and (
-            getattr(args, "from_bundle", None)
-            or getattr(args, "export_bundle", None)):
-        raise SystemExit(BUNDLE_MESH)
     if getattr(args, "checkpoint_dir", None):
         if args.torch_checkpoint:
             raise SystemExit("--checkpoint_dir and --torch_checkpoint are "
@@ -155,18 +145,17 @@ def main(argv=None):
     print(f"{len(reqs)} clip requests")
 
     if args.from_bundle:
-        from bmhrl_tpu_torch.serve_export import (BundleError,
-                                                  ExportedCaptionServer)
+        from bmhrl_tpu_torch.serve_export import (BundleError, check_world,
+                                                  read_manifest)
 
         try:
-            server = ExportedCaptionServer(
-                args.from_bundle, args.video_features_path,
-                args.audio_features_path, device=args.device)
+            manifest = read_manifest(args.from_bundle, args.device)
         except BundleError as e:
             raise SystemExit(str(e))
-        return _serve(server, reqs, args)
-
-    if args.mesh > 1:
+        if args.mesh == 1:
+            return _serve_bundle(args, reqs, args.device)
+        check_world(manifest, args.mesh)
+    if args.mesh > 1 and not args.export_bundle:
         from bmhrl_tpu_torch.parallel.mesh import spawn
 
         return spawn(_serve_rank, args.mesh, args.device, args=(args, reqs))
@@ -175,7 +164,23 @@ def main(argv=None):
 
 def _serve_rank(mesh, args, reqs):
     """One rank of ``--mesh``: its server; rank 0 writes the submission."""
+    if args.from_bundle:
+        return _serve_bundle(args, reqs, mesh.device, mesh)
     return _build_and_serve(args, reqs, mesh.device, mesh)
+
+
+def _serve_bundle(args, reqs, device, mesh=None):
+    """Serve ``reqs`` from the bundle of ``--from_bundle`` on ``device``
+    (``mesh``: this rank's; each rank prints its load seconds)."""
+    from bmhrl_tpu_torch.serve_export import ExportedCaptionServer
+
+    server = ExportedCaptionServer(
+        args.from_bundle, args.video_features_path,
+        args.audio_features_path, device=device, mesh=mesh)
+    if mesh is not None:
+        print(json.dumps({"rank": mesh.rank, "load_s": server.load_s}),
+              flush=True)
+    return _serve(server, reqs, args, mesh is None or mesh.is_main)
 
 
 def _build_and_serve(args, reqs, device, mesh=None):

@@ -224,17 +224,20 @@ class Manager(nn.Module):
         self.dout_p = dout_p
         self.linear = Dense(d_model_caps, d_goal, torch.float32, device)
 
-    def goal_step(self, mf_t, label_t, has_boundary):
+    def goal_step(self, mf_t, label_t, has_boundary, fed=None):
+        """The goals at the decode frontier; ``fed``: the cross-rank flags
+        (``ops.segments.frontier_goal``)."""
         return frontier_goal(self.linear(mf_t.float()), label_t, has_boundary,
-                             self.mesh)
+                             self.mesh, fed)
 
     def forward(self, x, critic_mask, exploration: bool = False,
                 drop: Optional[Draws] = None,
-                noise: Optional[Draws] = None):
+                noise: Optional[Draws] = None, fed=None):
         """x (B, L, Dc) manager features, critic_mask (B, L) segment labels
         -> (B, L, d_goal) goals. ``drop``: dropout draws (None: none);
         ``noise``: the exploration normal's draws (needed if
-        ``exploration``)."""
+        ``exploration``); ``fed``: the cross-rank flags of the expansion
+        (``ops.segments.expand_goals``)."""
         x = dropout(self.linear(x.float()), self.dout_p, drop)
         if exploration:
             xd = x.detach()
@@ -243,7 +246,7 @@ class Manager(nn.Module):
             std = torch.sqrt(mesh_lib.global_nanmean(
                 (xd - centre).abs() ** 2, self.mesh)) / self.STD_FACTOR
             x = x + (noise.normal((self.d_goal,)) * std + mean - 0.5 * mean)
-        return expand_goals(x, critic_mask, self.mesh)
+        return expand_goals(x, critic_mask, self.mesh, fed)
 
 
 class Worker(nn.Module):
@@ -392,10 +395,15 @@ class HierarchicalAgent(nn.Module):
                                         state, crit_w)
         return score[:, 0], state
 
+    def frontier_head(self, trg, labels):
+        """The full-buffer token's input to its cross-row rule: (head for
+        ``decode_frontier``, the rows' boundary flags the ranks exchange)."""
+        return (), labels.bool().any(dim=1)
+
     def decode_frontier(self, trg, labels, Va, Av, masks, t: torch.Tensor,
                         exploration: bool = False,
                         fusion_kv: Optional[Dict] = None,
-                        draws: Optional[Draws] = None):
+                        draws: Optional[Draws] = None, head=None, fed=None):
         """Log-probs (B, V) at position t of the buffer trg (B, L) with the
         critic's segment labels (B, L) (zero past t), under ``masks`` with
         the caption mask "C_mask": the fusion stacks run over the whole
@@ -404,7 +412,9 @@ class HierarchicalAgent(nn.Module):
         ``exploration`` the goal gets
         the Manager's noise with statistics over positions <= t
         (``ops.segments.frontier_exploration_noise``, one normal draw from
-        ``draws``)."""
+        ``draws``). ``head``: ``frontier_head``'s (nothing here); ``fed``:
+        the cross-rank flags of the goals (``ops.segments.frontier_goal``;
+        None: exchanged over the mesh here)."""
         C = self.pos_enc_C(self.emb_C(trg)).to(self.dtype)
         worker_feat, manager_feat = self.fusion_features(C, Va, Av, masks,
                                                          None, fusion_kv)
@@ -416,7 +426,7 @@ class HierarchicalAgent(nn.Module):
                 self.manager.d_goal, draws, Manager.MEAN_FACTOR,
                 Manager.STD_FACTOR, self.mesh)
         goal_t = frontier_goal(x_t, labels.index_select(1, at)[:, 0],
-                               labels.bool().any(dim=1), self.mesh)
+                               labels.bool().any(dim=1), self.mesh, fed)
         return self.worker.frontier(worker_feat.index_select(1, at),
                                     worker_feat, goal_t,
                                     masks["C_mask"].index_select(1, at))
@@ -454,14 +464,13 @@ class HierarchicalAgent(nn.Module):
         return c_t, label_t, crit
 
     def decode_step_tail(self, wf_t, mf_t, label_t, hb, goal_cache,
-                         t: torch.Tensor,
-                         key_mask, goal_fw: FoldedWeights):
-        """Goal emission + worker head. Returns ((B, V) log-probs, hb)."""
-        hb = hb | label_t.bool()
-        goal_t = self.manager.goal_step(mf_t, label_t, hb)
-        logits = self.worker.step_raw(wf_t, goal_t, goal_cache, t, key_mask,
-                                      goal_fw)
-        return logits, hb
+                         t: torch.Tensor, key_mask, goal_fw: FoldedWeights,
+                         fed=None):
+        """Goal emission + worker head at the boundary flags ``hb`` (label
+        t included). Returns (B, V) log-probs."""
+        goal_t = self.manager.goal_step(mf_t, label_t, hb, fed)
+        return self.worker.step_raw(wf_t, goal_t, goal_cache, t, key_mask,
+                                    goal_fw)
 
     # the fast loop has every position's inputs once it reaches it
     has_fast_loop = True
@@ -487,13 +496,32 @@ class HierarchicalAgent(nn.Module):
         valid0[:, 0] = True
         return caches0, valid0, inv
 
-    def fast_step(self, tok_t, t: torch.Tensor, caches, valid, inv,
-                  beam_share: int = 1):
-        """One token of the fast loop: token ids tok_t (B,), position t (a
-        0-d int64 tensor), the caches (written IN PLACE: KV and goal
-        caches; the critic state and the boundary flag come back new),
-        ``valid`` and ``fast_state``'s ``inv``. Returns (log-probs (B, V),
-        caches).
+    # a token's step has a cross-row rule (the goals' ``frontier_goal``):
+    # it is cut into a head and a body around the exchange of the boundary
+    # flags (``fast_step_head``/``fast_step_body``; the full-buffer loop's
+    # ``train.decode.full_step_head``/``full_step_body``), and
+    # ``serve_export`` exports each half
+    cross_row_step = True
+
+    def fast_step_head(self, tok_t, t: torch.Tensor, caches, inv):
+        """The token's step up to its cross-row rule: embed, the frozen
+        critic's step, the segment label and the boundary flag. Returns
+        (head, caches, flag): ``head`` = (c_t, label_t) for the body,
+        ``caches`` with the critic state and the boundary flags new, and
+        ``flag`` (B,) the boundary flags the ranks exchange."""
+        c_t, label_t, crit = self.decode_step_head(tok_t, t,
+                                                   caches["critic"],
+                                                   inv["crit_w"])
+        hb = caches["hb"] | label_t.bool()
+        return (c_t, label_t), dict(caches, critic=crit, hb=hb), hb
+
+    def fast_step_body(self, head, t: torch.Tensor, caches, valid, inv,
+                       beam_share: int = 1, fed=None):
+        """The token's step after its head: the two fusion stacks, then the
+        goals and the worker head (``decode_step_tail``) under the
+        cross-rank flags ``fed`` (``parallel.mesh.cross_flags``; None:
+        these rows are the batch). Writes the KV and goal caches in place;
+        returns the log-probs (B, V).
 
         ``beam_share`` = W > 1: B counts ROWS (clips x beams, clip-major)
         while the memories stay at clip level; the W beams of a clip fold
@@ -512,9 +540,7 @@ class HierarchicalAgent(nn.Module):
                 mask, scale)
             return ctx.reshape(R, G, draw)
 
-        c_t, label_t, crit = self.decode_step_head(tok_t, t,
-                                                   caches["critic"],
-                                                   inv["crit_w"])
+        c_t, label_t = head
         c = [c_t, c_t]
         for i in range(N):
             layers = [self.fusion_layer(s, i) for s in range(2)]
@@ -528,10 +554,23 @@ class HierarchicalAgent(nn.Module):
             c = [layers[s].step_mem_post(
                 pre[s][0], *(x[:, s * H:(s + 1) * H] for x in ctx),
                 sw[s][i]) for s in range(2)]
-        logits, hb = self.decode_step_tail(
-            c[0], c[1], label_t, caches["hb"], caches["goal"], t, valid,
-            inv["goal_fw"])
-        return logits, dict(caches, critic=crit, hb=hb)
+        return self.decode_step_tail(c[0], c[1], label_t, caches["hb"],
+                                     caches["goal"], t, valid,
+                                     inv["goal_fw"], fed)
+
+    def fast_step(self, tok_t, t: torch.Tensor, caches, valid, inv,
+                  beam_share: int = 1):
+        """One token of the fast loop: token ids tok_t (B,), position t (a
+        0-d int64 tensor), the caches (written IN PLACE: KV and goal
+        caches; the critic state and the boundary flag come back new),
+        ``valid`` and ``fast_state``'s ``inv``. Returns (log-probs (B, V),
+        caches). ``fast_step_head``, the boundary flags exchanged over the
+        model's mesh (one all_reduce with ranks; nothing alone), then
+        ``fast_step_body``."""
+        head, caches, flag = self.fast_step_head(tok_t, t, caches, inv)
+        fed = mesh_lib.cross_flags(flag, self.mesh)
+        return self.fast_step_body(head, t, caches, valid, inv, beam_share,
+                                   fed), caches
 
     def fast_setup(self, Va, Av, masks_src, B: int, L: int,
                    beam_share: int = 1):

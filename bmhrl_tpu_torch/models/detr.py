@@ -385,20 +385,25 @@ class DetrCaption(nn.Module):
                          exploration: bool = False,
                          draws: Optional[Draws] = None,
                          fusion_kv: Optional[Dict] = None,
-                         noise: Optional[Draws] = None):
+                         noise: Optional[Draws] = None, seg=None,
+                         fed=None):
         """Worker-decoder features (B, L, d_worker) of the caption
         embeddings C (B, L, Dc) of ``trg`` (EOS already PAD). ``draws``:
         the dropout draws of a training forward (None: none); ``noise``:
-        the Manager's exploration normals (pre-goal path)."""
+        the Manager's exploration normals (pre-goal path). The pre-goal
+        path's segment labels are ``seg`` where given (else labelled here:
+        ``_forced_segment_labels``) and its goals' cross-rank flags ``fed``
+        (None: exchanged over the mesh)."""
         dt, fkv = self.dtype, fusion_kv or {}
         if self.pre_goal_attention:
             ctx = self.manager_decoder(
                 C.to(dt), memory, masks["V_mask"], self.pos_enc,
                 self.pos_enc_C, masks["C_mask"], draws=draws,
                 mem_kv=fkv.get("manager_mem"))
-            labels = self._forced_segment_labels(trg, C)
+            labels = (self._forced_segment_labels(trg, C) if seg is None
+                      else seg)
             goals = self.manager(ctx.float(), labels, exploration, draws,
-                                 noise)
+                                 noise, fed)
             gfa = self.goal_feature_attention(
                 self.pos_enc_goal(goals.to(dt), draws),
                 self.pos_enc_C(C, draws).to(dt), C.to(dt), masks["C_mask"],
@@ -469,19 +474,42 @@ class DetrCaption(nn.Module):
                 Va, self.pos_enc)
         return kv
 
+    def frontier_head(self, trg, labels):
+        """The full-buffer token's input to its cross-row rule: on the
+        pre-goal path (seg,) the buffer's segment labels
+        (``_forced_segment_labels``) and their rows' boundary flags, which
+        the ranks exchange for the Manager's goal expansion; else nothing
+        and None (no cross-row rule). ``labels`` (the stub critic's) are
+        not used."""
+        if not self.pre_goal_attention:
+            return (), None
+        trg = self._caption_input(trg)
+        seg = self._forced_segment_labels(trg, self.emb_C(trg))
+        return (seg,), seg.bool().any(dim=1)
+
     def decode_frontier(self, trg, labels, Va, Av, masks, t: torch.Tensor,
                         exploration: bool = False,
                         fusion_kv: Optional[Dict] = None,
-                        draws: Optional[Draws] = None):
+                        draws: Optional[Draws] = None, head=None, fed=None):
         """Log-probs (B, V) at position t of the buffer trg (B, L): the
         decoders over the whole buffer, the vocabulary projection at t.
         ``labels`` (the stub critic's) are not used; the pre-goal path
-        labels the buffer with its own critic."""
+        labels the buffer with its own critic, or takes ``head``
+        (``frontier_head``'s), and expands its goals under the cross-rank
+        flags ``fed`` (None: exchanged over the mesh)."""
         trg = self._caption_input(trg)
         wf = self.caption_features(self.emb_C(trg), trg, Va, Av, masks,
-                                   exploration, None, fusion_kv, draws)
+                                   exploration, None, fusion_kv, draws,
+                                   seg=head[0] if head else None, fed=fed)
         wf_t = wf.index_select(1, t.reshape(1))[:, 0]
         return torch.log_softmax(self.linear(wf_t.float()), dim=-1)
+
+    @property
+    def cross_row_step(self) -> bool:
+        """Does a token's step hold a cross-row rule besides the loop's
+        stop? Only the pre-goal path's (its goal expansion);
+        ``serve_export`` exports the default path's step whole."""
+        return self.pre_goal_attention
 
     # -- the fast decode (default path) ---------------------------------------
     @property

@@ -25,7 +25,7 @@ def next_boundary(segment_mask: torch.Tensor) -> torch.Tensor:
 
 
 def expand_goals(x: torch.Tensor, segment_mask: torch.Tensor,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, fed=None) -> torch.Tensor:
     """Broadcast each boundary's goal back over its segment, with the
     reference loop's finalisation (bmhrl_tpu/ops/segments.py
     ``expand_goals``). For a row b:
@@ -38,6 +38,8 @@ def expand_goals(x: torch.Tensor, segment_mask: torch.Tensor,
       whenever any row has a boundary;
     - an all-zero mask returns x unchanged.
 
+    ``fed``: the cross-rank flags already exchanged (as in
+    ``frontier_goal``); None: exchanged over ``mesh`` here.
     x: (B, L, D); segment_mask: (B, L) -> (B, L, D)."""
     B, L, D = x.shape
     m = segment_mask.bool()
@@ -45,11 +47,13 @@ def expand_goals(x: torch.Tensor, segment_mask: torch.Tensor,
     gathered = torch.gather(x, 1, nb.clamp_max(L - 1)[:, :, None]
                             .expand(B, L, D))
     hb = m.any(dim=1)
-    later, any_hb = mesh_lib.row_flags(hb, mesh)
+    if fed is None:
+        fed = mesh_lib.cross_flags(hb, mesh)
+    later, any_hb, row0 = mesh_lib.apply_cross_flags(hb, fed)
     zeros = torch.zeros_like(x)
     tail_val = torch.where(later[:, None, None], zeros, x)
     boundary_rows = torch.where((nb >= L)[:, :, None], tail_val, gathered)
-    row0_zeroed = (~hb) & mesh_lib.first_row(B, x.device, mesh) & any_hb
+    row0_zeroed = (~hb) & row0 & any_hb
     no_boundary_rows = torch.where(row0_zeroed[:, None, None], zeros, x)
     return torch.where(hb[:, None, None], boundary_rows, no_boundary_rows)
 
@@ -65,19 +69,24 @@ def segment_sum_expand(reward: torch.Tensor,
 
 
 def frontier_goal(x_t: torch.Tensor, label_t: torch.Tensor,
-                  has_boundary: torch.Tensor, mesh=None) -> torch.Tensor:
+                  has_boundary: torch.Tensor, mesh=None,
+                  fed=None) -> torch.Tensor:
     """expand_goals at the single decode-frontier position t.
 
     ``x_t`` (B, 1, D) raw goals, ``label_t`` (B,) critic labels at t,
     ``has_boundary`` (B,) any label at positions <= t (t included). A row
     keeps its raw goal iff t is a boundary, OR it is the last row with a
     boundary, OR it has no boundary and is not row 0 of a batch where some
-    row has one; every other row gets zeros."""
-    B = x_t.shape[0]
+    row has one; every other row gets zeros. The other ranks' rows enter
+    through ``fed``, the cross-rank flags already exchanged
+    (``parallel.mesh.cross_flags``; an exported step takes them as inputs),
+    or, when None, through an exchange over ``mesh`` here."""
     hb = has_boundary.bool()
     lab = label_t.bool()
-    later, any_hb = mesh_lib.row_flags(hb, mesh)
-    row0_zeroed = mesh_lib.first_row(B, x_t.device, mesh) & any_hb
+    if fed is None:
+        fed = mesh_lib.cross_flags(hb, mesh)
+    later, any_hb, row0 = mesh_lib.apply_cross_flags(hb, fed)
+    row0_zeroed = row0 & any_hb
     keep_raw = lab | (hb & ~later) | (~hb & ~row0_zeroed)
     return torch.where(keep_raw[:, None, None], x_t, torch.zeros_like(x_t))
 

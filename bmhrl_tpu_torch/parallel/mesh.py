@@ -11,7 +11,9 @@ split over the ranks in contiguous blocks: rank r holds rows
 
 A rank sees only its rows, so every quantity in which a row depends on
 other rows takes the helpers below: the goal expansion's "does a later
-row have a boundary" and "row 0 of the batch" (``ops.segments``), the
+row have a boundary" and "row 0 of the batch" (``ops.segments``; split
+into the exchange, ``cross_flags``, and the pure ``apply_cross_flags``,
+so an exported token step takes the exchanged flags as inputs), the
 Manager's statistics, the loss normalisers (``global_sum``,
 ``global_count``), the decode's stop (``all_done``) and the tokens back in
 request order (``gather_rows``). Each helper is the identity for
@@ -132,15 +134,43 @@ def rank_flags(flag: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return mesh.all_reduce(slots)
 
 
+def cross_flags(flag: torch.Tensor, mesh: Optional[Mesh] = None
+                ) -> Optional[Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]]:
+    """The exchange half of ``row_flags``: three 0-d bools (a LATER rank
+    has a row with ``flag``, ANOTHER rank has one, this rank holds row 0
+    of the global batch) from one ``rank_flags`` all_reduce; None alone
+    (no collective). ``flag``: this rank's rows' flags, or their any."""
+    if _world(mesh) == 1:
+        return None
+    ranks = rank_flags(flag, mesh)
+    later = ranks[mesh.rank + 1:].sum() > 0
+    other = (ranks.sum() - ranks[mesh.rank]) > 0
+    first = torch.full((), mesh.rank == 0, dtype=torch.bool,
+                       device=flag.device)
+    return later, other, first
+
+
+def apply_cross_flags(flag: torch.Tensor, fed=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pure half of ``row_flags``: (later (b,) bool, any () bool, row0
+    (b,) bool: True at row 0 of the global batch) of this rank's rows of
+    ``flag`` under the cross-rank flags ``fed`` (``cross_flags``'s three
+    0-d bools, or the inputs of an exported program; None: these rows are
+    the batch)."""
+    later = _local_later(flag)
+    row0 = torch.arange(flag.shape[0], device=flag.device) == 0
+    if fed is None:
+        return later, flag.any(), row0
+    later_rank, other_rank, first_rank = fed
+    return later | later_rank, flag.any() | other_rank, row0 & first_rank
+
+
 def row_flags(flag: torch.Tensor, mesh: Optional[Mesh] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(later (b,) bool: does any LATER row of the global batch have
     ``flag``; any () bool: does any row), with one collective."""
-    later = _local_later(flag)
-    if _world(mesh) == 1:
-        return later, flag.any()
-    ranks = rank_flags(flag, mesh)
-    return later | (ranks[mesh.rank + 1:].sum() > 0), ranks.sum() > 0
+    return apply_cross_flags(flag, cross_flags(flag, mesh))[:2]
 
 
 def rows_later_have(flag: torch.Tensor,
@@ -153,14 +183,6 @@ def rows_any(flag: torch.Tensor, mesh: Optional[Mesh] = None
              ) -> torch.Tensor:
     """() bool: does any row of the global batch have ``flag``."""
     return row_flags(flag, mesh)[1]
-
-
-def first_row(n: int, device, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """(n,) bool: True at row 0 of the global batch (on rank 0 only)."""
-    row0 = torch.arange(n, device=device) == 0
-    if _world(mesh) > 1 and mesh.rank != 0:
-        return torch.zeros_like(row0)
-    return row0
 
 
 def global_sum(x: torch.Tensor, mesh: Optional[Mesh] = None

@@ -28,7 +28,9 @@ rows [r*b, (r+1)*b) of each batch (a clip's beams stay with it), the
 decode stops when every rank's rows are done, and the tokens come back to
 every rank in request order (``gather_rows``); the caller writes the
 submission on rank 0. The sampled server's draws are the global batch's,
-each rank keeping its rows. A bundle's server takes no mesh.
+each rank keeping its rows. A bundle's server
+(``serve_export.ExportedCaptionServer``) takes a mesh the same way: one
+bundle, exported at the global batch, serves every world that divides it.
 """
 from __future__ import annotations
 

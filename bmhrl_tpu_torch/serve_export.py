@@ -1,7 +1,7 @@
 """AOT serving bundles: export the decode once, serve it without the model
 code (the counterpart of bmhrl_tpu/serve_export.py).
 
-For each (batch, video bucket, audio bucket) shape a bundle holds two
+For each (batch, video bucket, audio bucket) shape a bundle holds
 ``torch.export`` programs, shared by shapes whose lengths differ only
 within one side of the flash gate (dynamic lengths):
 
@@ -9,17 +9,32 @@ within one side of the flash gate (dynamic lengths):
   It returns the per-row decode state (KV caches, critic RNN state, goal
   cache, boundary flags), the validity buffer and the loop-invariant inputs
   (merged QKV, folded projections, packed critic cells, the memories);
-- ``step``: one call of the model's ``fast_step`` (one token). It returns
-  the log-probs and the state it carries anew (critic RNN state, boundary
-  flags) and writes the KV and goal caches it is given in place (input
-  mutation), so after a beam's parent gather it writes into the gathered
-  tensors.
+- ``head`` and ``body``: one token cut at its cross-row rule (the goal
+  families, BMHRL and AHRL/VHRL: ``fast_step_head``/``fast_step_body``;
+  the DETR's pre-goal path: ``train.decode.full_step_head``/
+  ``full_step_body``). The head embeds the token, steps the frozen critic
+  and returns the new critic state and boundary flags with their local
+  any (the pre-goal path: the buffer's segment labels); the host
+  exchanges that over the ranks (``parallel.mesh.cross_flags``: one
+  all_reduce; constants on one device); the body runs the rest of the
+  token under those flags (three 0-d bool inputs) and writes the caches
+  it is given in place (input mutation), so after a beam's parent gather
+  it writes into the gathered tensors. No program holds a collective.
+- ``step`` (the DETR's default path, whose token has no cross-row rule
+  but the loop's stop): one whole token, as ``fast_step``.
+
+Every program's row axis is dynamic (``torch.export.Dim`` "clips", and
+clips x W rows for beam search), from 1 to the exported batch's clips:
+one bundle, exported once at the global batch size, serves B / n clips on
+each of n data-parallel ranks (``ExportedCaptionServer(mesh=...)``), as a
+JAX bundle serves any mesh that divides its batch sizes. Each token
+program takes only the state and invariant leaves it reads (``reads``).
 
 A model without a fast loop (the DETR's ``pre_goal_attention`` path)
-exports the full-buffer loop's start and step instead
-(``train.decode.full_state``/``full_step``: the token buffer and the
-critic's labels are per-row state written in place, the memories repeated
-per beam), which the same host loops drive.
+exports the full-buffer loop's start, head and body instead
+(``train.decode.full_state``/``full_step_head``/``full_step_body``: the
+token buffer and the critic's labels are per-row state written in place,
+the memories repeated per beam), which the same host loops drive.
 
 The loop over positions stays on the host: ``train/decode.py``'s fast
 greedy and beam loops (argmax, or beam search's candidates, parent gather
@@ -41,12 +56,14 @@ Layout of a bundle dir:
                                       max_len, d_vid, d_aud, mode,
                                       beam_width, length_penalty, platforms)
                                       and format, programs (their
-                                      inputs), files (shape -> programs),
-                                      state, export_s
+                                      inputs, in the order of a file
+                                      entry), files ([B, vb, ab, program
+                                      files...]), state, export_s
     params.npz                        the flax tree, "a/b/c" keys
     setup_B{B}xV{vb}xA{ab}.pt2        per group of shapes (B clips; a
                                       length range as lo-hi: ``_groups``)
-    step_B{B}xV{vb}xA{ab}.pt2         per group (B x beam_width rows)
+    head_B{B}xV{vb}xA{ab}.pt2,        per group (B x beam_width rows), or
+    body_B{B}xV{vb}xA{ab}.pt2         step_B{B}xV{vb}xA{ab}.pt2
 """
 from __future__ import annotations
 
@@ -67,12 +84,14 @@ from bmhrl_tpu_torch.models.blocks import (_cudnn_without_tf32,
                                            sinusoid_table)
 from bmhrl_tpu_torch.ops.attention import MIN_SK
 from bmhrl_tpu_torch.ops.masking import make_masks
+from bmhrl_tpu_torch.parallel import mesh as mesh_lib
 from bmhrl_tpu_torch.serve import CaptionServer
 from bmhrl_tpu_torch.train.decode import (_beam_fast_loop, _fast_loop,
-                                          full_state, full_step)
+                                          full_state, full_step,
+                                          full_step_body, full_step_head)
 from bmhrl_tpu_torch.weights import flax_keys, jax_layout_params
 
-FORMAT = "bmhrl_tpu_torch/torch.export/1"
+FORMAT = "bmhrl_tpu_torch/torch.export/2"
 JAX_BLOB = ".bin"
 
 
@@ -213,6 +232,42 @@ def _step(model, tok_t, t, caches, valid, inv, W: int):
     return full_step(model, tok_t, t, caches, valid, inv)
 
 
+def _head(model, tok_t, t, caches, inv):
+    """A token's step up to its cross-row rule: (head, caches, flag)."""
+    if model.has_fast_loop:
+        return model.fast_step_head(tok_t, t, caches, inv)
+    return full_step_head(model, tok_t, t, caches, inv)
+
+
+def _body(model, head, t, caches, valid, inv, W: int, fed):
+    """A token's step after its head, under the cross-rank flags ``fed``:
+    the log-probs."""
+    if model.has_fast_loop:
+        return model.fast_step_body(head, t, caches, valid, inv, W, fed)
+    return full_step_body(model, head, t, caches, valid, inv, fed=fed)
+
+
+def _alone_flags(device) -> List[torch.Tensor]:
+    """The cross-rank flags of a batch held whole (no later rank, no other
+    rank, row 0 here): the body program's flags on one device."""
+    return [torch.zeros((), dtype=torch.bool, device=device),
+            torch.zeros((), dtype=torch.bool, device=device),
+            torch.ones((), dtype=torch.bool, device=device)]
+
+
+def _leaves_at(skel, x) -> List:
+    """The values of nest ``x`` at the leaves of skeleton ``skel`` (``x``
+    has its structure; a value may be None where the program was not
+    given that leaf)."""
+    if skel is _LEAF:
+        return [x]
+    if isinstance(skel, dict):
+        return [v for k in skel for v in _leaves_at(skel[k], x[k])]
+    if isinstance(skel, (list, tuple)):
+        return [v for s, y in zip(skel, x) for v in _leaves_at(s, y)]
+    return []
+
+
 def _table_spec(model: nn.Module, name: str) -> List:
     """The recipe of buffer ``name``: every buffer the decode reads is a
     ``PositionalEncoder`` table, rebuilt by the loader."""
@@ -245,15 +300,26 @@ def _dim(name: str, lo: int, hi: int):
     return torch.export.Dim(name, min=lo, max=hi) if lo < hi else None
 
 
-def _leaf_dims(first, last, ends: Dict[Tuple[int, int], object]):
-    """Dynamic-shape specs of the tensors ``first`` (at the group's first
-    shape) and ``last`` (at its last): each axis whose size moves from one
-    end of a length's range to the other takes that length's Dim."""
+def _leaf_dims(first, last, wider, ends: Dict[Tuple[int, int], object],
+               grow: Dict[Tuple[int, int], object]):
+    """Dynamic-shape specs of the program inputs ``first`` (at the group's
+    first shape), ``last`` (at its last) and ``wider`` (at the first shape
+    with one clip more). The row axis is told by position: axis 0 of an
+    input that grows with the clips takes the Dim of ``grow`` (its sizes
+    at B and B + 1 clips: the clips' Dim, or the rows' for B x W rows).
+    Each other axis whose size moves from one end of a length's range to
+    the other takes that length's Dim."""
     specs = []
-    for x, y in zip(first, last):
+    for x, y, z in zip(first, last, wider):
         spec = {}
+        if x.dim() and x.shape[0] != z.shape[0]:
+            if (x.shape[0], z.shape[0]) not in grow:
+                raise ValueError(f"an input of {x.shape[0]} -> {z.shape[0]} "
+                                 "rows follows neither the clips nor the "
+                                 "rows")
+            spec[0] = grow[x.shape[0], z.shape[0]]
         for d, (n, m) in enumerate(zip(x.shape, y.shape)):
-            if n != m:
+            if d not in spec and n != m:
                 if (n, m) not in ends:
                     raise ValueError(f"an input of shape {tuple(x.shape)} "
                                      f"-> {tuple(y.shape)} follows no "
@@ -280,14 +346,18 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
                          length_penalty: float = 0.0) -> Dict:
     """Export ``model``'s decode at each (B, video_bucket, audio_bucket)
     shape into ``out_dir`` -- greedy by default, beam search when
-    ``beam_width`` > 1 (the step program then runs B x W rows with the W
+    ``beam_width`` > 1 (the token programs then run B x W rows with the W
     beams of a clip sharing its memories) -- with the weights once in
-    ``params.npz``. Shapes of one ``_groups`` group share one pair of
+    ``params.npz``. Shapes of one ``_groups`` group share one set of
     programs whose video and audio lengths are dynamic between the group's
-    ends. Exports on the model's device, the platform the bundle serves
-    on. Takes every family: the fast loop's step where the model has one,
-    the full-buffer step for the DETR's ``pre_goal_attention`` path.
-    Returns the manifest."""
+    ends; the row axis of every program is dynamic from 1 to B clips, so
+    one bundle, exported in one process at the global B, serves B / n
+    clips on each of n ranks. Exports on the model's device, the platform
+    the bundle serves on. Takes every family: the fast loop's step where
+    the model has one, the full-buffer step for the DETR's
+    ``pre_goal_attention`` path, each as a head and a body around the
+    exchange of the cross-row flags where it has a cross-row rule
+    (``model.cross_row_step``). Returns the manifest."""
     if not shapes:
         raise ValueError("export_decode_bundle: no shapes requested")
     os.makedirs(out_dir, exist_ok=True)
@@ -295,6 +365,8 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
     dev = model.device
     W = int(beam_width)
     L = int(cfg.max_len) + 1
+    # a token's step with a cross-row rule is cut around its exchange
+    split = model.cross_row_step
     names = {id(p): n for n, p in model.named_parameters()}
     names.update({id(b): n for n, b in model.named_buffers()})
     keys = flax_keys(model)
@@ -303,41 +375,73 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
     export_s: Dict[str, float] = {}
     files: List[List] = []
 
+    def traced(fn, leaves):
+        """fn() under a record of the parameters, buffers (by name) and
+        decode-state leaves (by index into ``leaves``) it reads."""
+        watched = dict(names)
+        watched.update({id(x): i for i, x in enumerate(leaves)})
+        with _Uses(watched) as uses:
+            out = fn()
+        return (out, {n for n in uses.seen if isinstance(n, str)},
+                sorted(n for n in uses.seen if isinstance(n, int)))
+
     def dry_run(B, vb, ab):
-        """One eager decode start and step at a shape: the example inputs,
-        the nests' skeletons, the state the step carries anew and the
-        tensors each half reads."""
+        """One eager decode start and token at a shape: per program its
+        example inputs, the parameters and buffers it reads and the state
+        leaves it takes; the nests' skeletons; the state leaves a token
+        carries anew."""
         feats = [torch.zeros(B, vb, cfg.d_vid, device=dev),
                  torch.zeros(B, vb, cfg.d_vid, device=dev),
                  torch.zeros(B, ab, cfg.d_aud, device=dev)]
-        with _Uses(names) as setup_uses:
-            caches, valid, inv = _setup(model, *feats, W, L)
+        (caches, valid, inv), setup_used, _ = traced(
+            lambda: _setup(model, *feats, W, L), [])
         state: List[torch.Tensor] = []
         inv_leaves: List[torch.Tensor] = []
         skels = (_split(caches, state), _split(inv, inv_leaves))
+        # distinct tensors: the state aliases (the critic starts every cell
+        # from one zero tensor)
+        leaves = [x.clone() for x in (*state, *inv_leaves)]
+        n = len(state)
+        caches = _join(skels[0], iter(leaves[:n]))
+        inv = _join(skels[1], iter(leaves[n:]))
         tok = torch.full((B * W,), BOS, dtype=torch.int64, device=dev)
         t0 = torch.zeros((), dtype=torch.int64, device=dev)
-        with _Uses(names) as step_uses:
-            _, new = _step(model, tok, t0, caches, valid, inv, W)
-        new_leaves: List[torch.Tensor] = []
-        _split(new, new_leaves)
-        carried = [i for i, (a, b) in enumerate(zip(state, new_leaves))
+        runs = {"setup": (feats, setup_used)}
+        if split:
+            (head, new, _), used, reads = traced(
+                lambda: _head(model, tok, t0, caches, inv), leaves)
+            runs["head"] = ([tok, t0, *(leaves[i] for i in reads)], used,
+                            reads)
+        else:
+            (_, new), used, reads = traced(
+                lambda: _step(model, tok, t0, caches, valid, inv, W), leaves)
+            runs["step"] = ([tok, t0, valid, *(leaves[i] for i in reads)],
+                            used, reads)
+        new_state = _leaves_at(skels[0], new)
+        carried = [i for i, (a, b) in enumerate(zip(leaves, new_state))
                    if a is not b]
-        # distinct example tensors: the state aliases (the critic starts
-        # every cell from one zero tensor)
-        step_args = [tok, t0, valid, *(x.clone() for x in state),
-                     *inv_leaves]
-        return (feats, step_args, skels, carried, setup_uses.seen,
-                step_uses.seen, len(state))
+        if split:
+            head_leaves: List[torch.Tensor] = []
+            head_skel = _split(head, head_leaves)
+            after = [new_state[i] for i in range(n)] + leaves[n:]
+            alone = _alone_flags(dev)
+            _, used, reads = traced(
+                lambda: _body(model, head, t0, _join(
+                    skels[0], iter(after[:n])), valid, inv, W, alone), after)
+            runs["body"] = ([*head_leaves, t0, valid, *alone,
+                             *(after[i] for i in reads)], used, reads)
+            skels += (head_skel, len(head_leaves))
+        return runs, skels, carried, (n, len(leaves))
 
     for group in _groups(shapes):
         (B, v0, a0), (_, v1, a1) = group[0], group[-1]
         first = dry_run(*group[0])
         last = dry_run(*group[-1]) if len(group) > 1 else first
-        feats, step_args, (state_skel, inv_skel), carried, setup_used, \
-            step_used, n_state = first
+        # which inputs grow with the clips: a dry run with one clip more
+        wider = dry_run(B + 1, v0, a0)[0]
+        runs, skels, carried, (n_state, n_leaves) = first
         spec = {"leaves": n_state, "carried": carried}
-        if state_spec not in (None, spec) or last[3] != carried:
+        if state_spec not in (None, spec) or last[2] != carried:
             raise ValueError(f"shapes {group}: decode state {spec} differs "
                              f"from {state_spec}")
         state_spec = spec
@@ -347,6 +451,18 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
             ends[v0, v1] = vdim
         if adim is not None:
             ends[a0, a1] = adim
+        clips = torch.export.Dim("clips", min=1, max=B)
+        rows = clips if W == 1 else W * clips
+        grow = {(B, B + 1): clips, (W * B, W * (B + 1)): rows}
+
+        def state_of(rest, reads):
+            """The state and invariant nests from a program's inputs (None
+            at the leaves it does not take)."""
+            full: List = [None] * n_leaves
+            for i, x in zip(reads, rest):
+                full[i] = x
+            return (_join(skels[0], iter(full[:n_state])),
+                    _join(skels[1], iter(full[n_state:])))
 
         def setup_fn(m, rgb, flow, audio):
             c, v, i = _setup(m, rgb, flow, audio, W, L)
@@ -357,35 +473,52 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
             return leaves, v, inv_out
 
         def step_fn(m, tok_t, t, valid_t, *rest):
-            c = _join(state_skel, iter(rest[:n_state]))
-            i = _join(inv_skel, iter(rest[n_state:]))
+            c, i = state_of(rest, programs["step"]["reads"])
             logits, c_new = _step(m, tok_t, t, c, valid_t, i, W)
-            leaves: List[torch.Tensor] = []
-            _split(c_new, leaves)
+            leaves = _leaves_at(skels[0], c_new)
             return logits, [leaves[j] for j in carried]
 
+        def head_fn(m, tok_t, t, *rest):
+            c, i = state_of(rest, programs["head"]["reads"])
+            head, c_new, flag = _head(m, tok_t, t, c, i)
+            leaves = _leaves_at(skels[0], c_new)
+            out: List[torch.Tensor] = []
+            _split(head, out)
+            return out, [leaves[j] for j in carried], flag.any()
+
+        def body_fn(m, *args):
+            k = skels[3]  # the head's leaves, then t, valid and the flags
+            head = _join(skels[2], iter(args[:k]))
+            t, valid_t, *fed = args[k:k + 5]
+            c, i = state_of(args[k + 5:], programs["body"]["reads"])
+            return _body(m, head, t, c, valid_t, i, W, fed)
+
+        fns = {"setup": setup_fn, "step": step_fn, "head": head_fn,
+               "body": body_fn}
         names_of = {}
-        for kind, fn, used, args, lasts in (
-                ("setup", setup_fn, setup_used, feats, last[0]),
-                ("step", step_fn, step_used, step_args, last[1])):
+        for kind, run in runs.items():
+            args, used = run[0], run[1]
             w = [n for n, _ in model.named_parameters() if n in used]
             b = [n for n, _ in model.named_buffers() if n in used]
             record = {"weights": [[keys[n][0], "T" if keys[n][1] else ""]
                                   for n in w],
                       "tables": [_table_spec(model, n) for n in b]}
+            if kind != "setup":
+                record["reads"] = run[2]
             if programs.setdefault(kind, record) != record:
                 raise ValueError(f"{kind} inputs differ across shapes")
             wt = [model.get_parameter(n).detach() for n in w]
             bt = [model.get_buffer(n) for n in b]
             dynamic = ([None] * len(wt), [None] * len(bt),
-                       _leaf_dims(args, lasts, ends))
-            ep, secs = _export(_Program(model, fn, w, b), (wt, bt, args),
-                               dynamic)
+                       _leaf_dims(args, last[0][kind][0],
+                                  wider[kind][0], ends, grow))
+            ep, secs = _export(_Program(model, fns[kind], w, b),
+                               (wt, bt, args), dynamic)
             name = _program_name(kind, B, v0, a0, v1, a1)
             torch.export.save(ep, os.path.join(out_dir, name))
             export_s[name] = secs
             names_of[kind] = name
-        files += [[*s, names_of["setup"], names_of["step"]] for s in group]
+        files += [[*s, *names_of.values()] for s in group]
 
     np.savez(os.path.join(out_dir, "params.npz"),
              **_flatten(jax_layout_params(model)))
@@ -412,7 +545,8 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
 
 def read_manifest(bundle_dir: str, device) -> Dict:
     """``bundle.json`` of a bundle this port serves on ``device``; raises
-    ``BundleError`` for a JAX bundle or one of another platform."""
+    ``BundleError`` for a JAX bundle, one of an older format or one of
+    another platform."""
     path = os.path.join(bundle_dir, "bundle.json")
     if not os.path.exists(path):
         raise BundleError(f"{bundle_dir} holds no bundle.json")
@@ -427,6 +561,14 @@ def read_manifest(bundle_dir: str, device) -> Dict:
                 "ExportedCaptionServer); export one for the port with "
                 "bmhrl_tpu_torch.serve_export.export_decode_bundle "
                 "(serve_captions --export_bundle)")
+        if str(m.get("format", "")).startswith(FORMAT.rsplit("/", 1)[0]):
+            raise BundleError(
+                f"{bundle_dir} is a bundle of format {m['format']}, not "
+                f"{FORMAT} (whose programs take any rows a rank holds and "
+                "cut the goal families' token step around the exchange of "
+                "the cross-row flags): re-export it with "
+                "bmhrl_tpu_torch.serve_export.export_decode_bundle "
+                "(serve_captions --export_bundle)")
         raise BundleError(f"{bundle_dir}: not a bundle of format {FORMAT}")
     dev = torch.device(device).type
     if m["platforms"] != [dev]:
@@ -437,17 +579,36 @@ def read_manifest(bundle_dir: str, device) -> Dict:
     return m
 
 
+def check_world(manifest: Dict, world: int) -> None:
+    """Raise ValueError unless every batch size of the bundle splits over
+    ``world`` ranks (the programs take any rows from 1 to the batch)."""
+    bad = sorted({s[0] for s in manifest["shapes"] if s[0] % world})
+    if bad:
+        raise ValueError(
+            f"bundle batch sizes {bad} are not divisible by the mesh data "
+            f"axis ({world}); batches would pad to shapes with no exported "
+            "program — re-export with divisible batch sizes or serve on a "
+            "matching mesh")
+
+
 class ExportedCaptionServer(CaptionServer):
     """CaptionServer that runs a bundle's exported programs: no captioner
     module. Scheduling and IO are inherited; each batch's (B, vb, ab) shape
     must match an exported one, so tail batches are row-padded to the
-    bundle's batch sizes. ``load_s``: seconds to load params and
-    programs."""
+    bundle's batch sizes. ``mesh``: the data-parallel mesh this rank
+    serves in (``parallel.mesh``): every rank loads the bundle, decodes
+    its B / world rows of each batch, exchanges the boundary flags between
+    the head and the body of each token and stops with the others; a batch
+    size the ranks do not divide is refused here. ``load_s``: seconds to
+    load params and programs; ``program_calls``: the calls of each program
+    kind so far."""
 
     def __init__(self, bundle_dir: str, video_features_path: str,
-                 audio_features_path: str, device="cuda"):
+                 audio_features_path: str, device="cuda", mesh=None):
         t0 = time.perf_counter()
         self.manifest = m = read_manifest(bundle_dir, device)
+        if mesh is not None:
+            check_world(m, mesh.world)
         cfg = Config(
             mode=m["mode"], max_len=m["max_len"],
             d_vid=m["d_vid"], d_aud=m["d_aud"],
@@ -455,12 +616,13 @@ class ExportedCaptionServer(CaptionServer):
             audio_buckets=tuple(sorted({s[2] for s in m["shapes"]})),
             video_features_path=video_features_path,
             audio_features_path=audio_features_path, to_log=False)
-        super().__init__(cfg, None, m["itos"], device=device)
+        super().__init__(cfg, None, m["itos"], device=device, mesh=mesh)
         self._fixed_batch = True
         self._batch_sizes = sorted({s[0] for s in m["shapes"]})
         self.beam_width = int(m["beam_width"])
         self.length_penalty = float(m["length_penalty"])
-        self._carried = m["state"]["carried"]
+        self._state = m["state"]
+        self._alone = _alone_flags(self.device)
         weights: Dict[Tuple[str, str], torch.Tensor] = {}
 
         def weight(key, layout):
@@ -476,6 +638,9 @@ class ExportedCaptionServer(CaptionServer):
                        [torch.from_numpy(sinusoid_table(rows, d)).to(
                            self.device) for _, rows, d in p["tables"]])
                 for kind, p in m["programs"].items()}
+        self._reads = {kind: p.get("reads") for kind, p in
+                       m["programs"].items()}
+        self.program_calls = dict.fromkeys(m["programs"], 0)
         loaded: Dict[str, nn.Module] = {}
 
         def program(name):
@@ -484,13 +649,16 @@ class ExportedCaptionServer(CaptionServer):
                     os.path.join(bundle_dir, name)).module()
             return loaded[name]
 
-        self._programs = {(B, vb, ab): (program(setup), program(step))
-                          for B, vb, ab, setup, step in m["files"]}
+        # a shape's program files follow the order of ``programs``
+        self._programs = {(B, vb, ab): dict(zip(m["programs"], map(
+            program, names))) for B, vb, ab, *names in m["files"]}
         self.load_s = time.perf_counter() - t0
 
     def _decode(self, feats: Dict, masks_src: Dict) -> torch.Tensor:
         rgb, audio = feats["rgb"], feats["audio"]
-        key = (int(rgb.shape[0]), int(rgb.shape[1]), int(audio.shape[1]))
+        world = 1 if self.mesh is None else self.mesh.world
+        key = (int(rgb.shape[0]) * world, int(rgb.shape[1]),
+               int(audio.shape[1]))
         progs = self._programs.get(key)
         if progs is None:
             raise KeyError(f"no exported decode for shape {key}; bundle has "
@@ -498,30 +666,52 @@ class ExportedCaptionServer(CaptionServer):
         # the live model runs its f32 convolutions with cuDNN's TF32 off
         # (models.blocks.ConvSame); an exported program holds no switch
         with torch.no_grad(), _cudnn_without_tf32():
-            return self._loop(*progs, rgb, feats["flow"], audio)
+            return self._loop(progs, rgb, feats["flow"], audio)
 
-    def _loop(self, setup, step, rgb, flow, audio) -> torch.Tensor:
-        """``train.decode``'s fast greedy or beam loop over the two
-        programs: the decode state is the flat list of the step's state
-        inputs, the carried ones replaced after each step."""
+    def _call(self, progs, kind: str, lead: List, state, inv):
+        """Program ``kind`` on its leading inputs and the state and
+        invariant leaves it reads."""
+        n = len(state)
+        taken = [state[i] if i < n else inv[i - n] for i in self._reads[kind]]
+        self.program_calls[kind] += 1
+        return progs[kind](*self._inputs[kind], [*lead, *taken])
+
+    def _loop(self, progs, rgb, flow, audio) -> torch.Tensor:
+        """``train.decode``'s fast greedy or beam loop over the programs:
+        the decode state is the flat list of the state leaves, the carried
+        ones replaced after each token. A token is one ``step`` program,
+        or a ``head``, the exchange of its boundary flags over the ranks
+        (constants on one device) and a ``body``."""
         B, W = rgb.shape[0], self.beam_width
-        state, valid, inv = setup(*self._inputs["setup"], [rgb, flow, audio])
-        weights, tables = self._inputs["step"]
+        self.program_calls["setup"] += 1
+        state, valid, inv = progs["setup"](*self._inputs["setup"],
+                                           [rgb, flow, audio])
+        carried = self._state["carried"]
+
+        def carry(state, new):
+            state = list(state)
+            for i, x in zip(carried, new):
+                state[i] = x
+            return state
 
         def step_fn(tok_t, t, state, valid):
-            logits, new = step(weights, tables,
-                               [tok_t, t, valid, *state, *inv])
-            state = list(state)
-            for i, x in zip(self._carried, new):
-                state[i] = x
-            return logits, state
+            if "step" in progs:
+                logits, new = self._call(progs, "step", [tok_t, t, valid],
+                                         state, inv)
+                return logits, carry(state, new)
+            head, new, flag = self._call(progs, "head", [tok_t, t], state,
+                                         inv)
+            state = carry(state, new)
+            fed = mesh_lib.cross_flags(flag, self.mesh) or self._alone
+            return self._call(progs, "body", [*head, t, valid, *fed], state,
+                              inv), state
 
         args = (state, valid, step_fn, B)
         if W == 1:
             return _fast_loop(*args, self.cfg.max_len, BOS, EOS, PAD, True,
-                              None, None)[0]
+                              None, None, self.mesh)[0]
         return _beam_fast_loop(*args, W, self.cfg.max_len, BOS, EOS, PAD,
-                               self.length_penalty)[0]
+                               self.length_penalty, self.mesh)[0]
 
     def caption(self, reqs, batch_size: Optional[int] = None, **kw):
         bs = batch_size or max(self._batch_sizes)

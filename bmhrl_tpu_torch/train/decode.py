@@ -147,15 +147,22 @@ def full_buffer_step(model, trg, labels, t: torch.Tensor, crit, crit_w, Va,
     tensor): advance the critic with token t of the buffer trg (B, L),
     write its segment label into ``labels`` (in place), then the log-probs
     (B, V) at t (``decode_frontier``). Returns (log-probs, critic state)."""
+    crit = _label_step(model, trg, labels, t, crit, crit_w)
+    masks = dict(masks_src, C_mask=c_mask(trg, pad_idx))
+    return model.decode_frontier(trg, labels, Va, Av, masks, t, exploration,
+                                 fusion_kv, draws), crit
+
+
+def _label_step(model, trg, labels, t: torch.Tensor, crit, crit_w):
+    """Advance the critic with token t of the buffer trg and write its
+    segment label into ``labels`` (in place). Returns the critic state."""
     at = t.reshape(1)
     score_t, crit = model.critic_step(trg.index_select(1, at)[:, 0], crit,
                                       crit_w)
     labels.index_copy_(1, at, (torch.sigmoid(score_t)
                                > model.critic_score_threshold).to(
                                    torch.int32)[:, None])
-    masks = dict(masks_src, C_mask=c_mask(trg, pad_idx))
-    return model.decode_frontier(trg, labels, Va, Av, masks, t, exploration,
-                                 fusion_kv, draws), crit
+    return crit
 
 
 def full_state(model, Va, Av, masks_src, B: int, L: int,
@@ -184,21 +191,47 @@ def full_state(model, Va, Av, masks_src, B: int, L: int,
     return caches, valid0, inv
 
 
+def full_step_head(model, tok_t, t: torch.Tensor, caches, inv):
+    """The full-buffer token up to its cross-row rule, in
+    ``fast_step_head``'s form: write tok_t (B,) at position t of the
+    state's buffer, advance the critic and write its label (in place),
+    then the model's ``frontier_head``. Returns (head, caches with the
+    critic state new, the rows' boundary flags the ranks exchange, or
+    None where the model has no cross-row rule)."""
+    trg = caches["trg"]
+    trg.index_copy_(1, t.reshape(1), tok_t[:, None])
+    crit = _label_step(model, trg, caches["labels"], t, caches["crit"],
+                       inv["crit_w"])
+    head, flag = model.frontier_head(trg, caches["labels"])
+    return head, dict(caches, crit=crit), flag
+
+
+def full_step_body(model, head, t: torch.Tensor, caches, valid, inv,
+                   pad_idx: int = PAD, exploration: bool = False,
+                   draws: Optional[Draws] = None, fed=None):
+    """The full-buffer token after its head: the log-probs (B, V) at t
+    (``decode_frontier``) under the cross-rank flags ``fed``
+    (``parallel.mesh.cross_flags``; None: these rows are the batch).
+    ``valid`` is not read: the buffer's PAD masks itself."""
+    trg = caches["trg"]
+    masks = dict(inv["masks"], C_mask=c_mask(trg, pad_idx))
+    return model.decode_frontier(trg, caches["labels"], inv["Va"], inv["Av"],
+                                 masks, t, exploration, inv["kv"], draws,
+                                 head, fed)
+
+
 def full_step(model, tok_t, t: torch.Tensor, caches, valid, inv,
               pad_idx: int = PAD, exploration: bool = False,
               draws: Optional[Draws] = None):
-    """One token of the full-buffer loop in ``fast_step``'s form: write
-    tok_t (B,) at position t of the state's buffer, then
-    ``full_buffer_step`` (buffer and labels written in place; the critic
-    state comes back new). ``valid`` is not read: the buffer's PAD masks
-    itself. Returns (log-probs (B, V), caches)."""
-    trg = caches["trg"]
-    trg.index_copy_(1, t.reshape(1), tok_t[:, None])
-    logits, crit = full_buffer_step(
-        model, trg, caches["labels"], t, caches["crit"], inv["crit_w"],
-        inv["Va"], inv["Av"], inv["masks"], inv["kv"], pad_idx,
-        exploration, draws)
-    return logits, dict(caches, crit=crit)
+    """One token of the full-buffer loop in ``fast_step``'s form:
+    ``full_step_head``, the boundary flags exchanged over the model's
+    mesh (one all_reduce with ranks; nothing alone), then
+    ``full_step_body`` (buffer and labels written in place; the critic
+    state comes back new). Returns (log-probs (B, V), caches)."""
+    head, caches, flag = full_step_head(model, tok_t, t, caches, inv)
+    fed = None if flag is None else mesh_lib.cross_flags(flag, model.mesh)
+    return full_step_body(model, head, t, caches, valid, inv, pad_idx,
+                          exploration, draws, fed), caches
 
 
 def _decode_loop(model, Va, Av, masks_src, B: int, max_len: int,

@@ -154,15 +154,17 @@ Phases, each of which raises at its first failure:
    entry points, ``torch.library`` custom ops, pass
    ``torch.library.opcheck`` with CUDA tensors at serving shapes; the
    flagship (seed-0 weights) exported greedy and with beam W=4 for the 64
-   requests at B=32 (``setup`` and ``step`` programs, weights as inputs,
-   ``params.npz``) and served from the bundle and from the live
+   requests at B=32 (``setup``, ``head`` and ``body`` programs with a
+   dynamic row axis, weights as inputs, ``params.npz``; both bundles kept
+   for the mesh phase) and served from the bundle and from the live
    CaptionServer (both row-padding tails to 32), each serve a main path
    with its launches counted: identical submissions and equal launches per
    kernel route; the bundle's loop syncs the host once per token; AHRL,
    DETR and DETR pre-goal (its full-buffer loop exported) bundles on 8
    requests likewise; a JAX bundle is refused. Records: export seconds per
    program, the bytes of ``params.npz`` and of the programs, load seconds,
-   greedy clips/s of bundle and live server taking turns (median of 3);
+   greedy clips/s of bundle and live server taking turns (median of 3)
+   and their ratio (the head program and the dynamic rows are in it);
 13. mesh: data parallelism (``parallel.mesh``) on the one card. A world
    of 1 over NCCL through the production path: ``train_rl_cap`` (B=16, a
    warmstart and a worker epoch of 4 steps) and the flagship's greedy
@@ -170,12 +172,18 @@ Phases, each of which raises at its first failure:
    the mesh in turns: bit-equal losses and parameters, identical
    submissions, one host sync per token, ms/step, clips/s and collectives
    per step and per token; the mesh runs are data parallelism's main
-   paths (launches zeroed just before and read just after). Then two gloo ranks
-   sharing the card (``spawn``) against one process: a small f32 model's
-   steps, decodes and a served tail of 1 padded to 2 (tokens identical,
-   1e-5), and the bf16 flagship's serve (the share of identical captions,
-   printed) and its steps fed one process's tokens (>= 95% the same
-   choice);
+   paths (launches zeroed just before and read just after). The export
+   phase's greedy bundle served by a world of 1 over NCCL started with
+   ``spawn``: the no-mesh bundle's submission and launches. Then two gloo
+   ranks sharing the card (``spawn``) against one process: a small f32
+   model's steps, decodes and a served tail of 1 padded to 2 (tokens
+   identical, 1e-5), and the bf16 flagship's serve (the share of
+   identical captions, printed) and its steps fed one process's tokens
+   (>= 95% the same choice); on the same ranks the greedy and beam W=4
+   bundles (16 rows a rank) against the live server with the same batch
+   shapes (identical captions, launches on rank 0 and all-reduces;
+   program calls a token, each rank's load seconds, the rig's clips/s),
+   and a small f32 bundle at one row a rank against one process;
 14. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
    one B=16 warmstart step under ``torch.profiler`` (last: a profiled
    process launches more slowly).
@@ -3856,7 +3864,7 @@ def phase_proposals(K, serve_model):
 
 
 def bundle_vs_live(K, model, cfg, itos, reqs, bs, what, key, beam_width=1,
-                   length_penalty=0.0, turns=0):
+                   length_penalty=0.0, turns=0, keep=None):
     """Export ``model``'s decode for the shapes ``reqs`` plan at ``bs``
     (``serve_export.export_decode_bundle``), load it and serve ``reqs``
     from it and from the live CaptionServer (both with fixed batch shapes:
@@ -3866,7 +3874,9 @@ def bundle_vs_live(K, model, cfg, itos, reqs, bs, what, key, beam_width=1,
     launches per kernel route, no 3xTF32 route, and every tensor-core
     kernel launched (both cells too, except for the DETR, which has none
     on its default path). With ``turns``, clips/s of both servers taking
-    turns (median). Returns the bundle's server."""
+    turns (median) and their ratio. ``keep``: the directory to export into
+    and keep (else a temporary one, removed once loaded). Returns the
+    bundle's server, its submission and its launches."""
     import torch
 
     from bmhrl_tpu_torch.ops import _cuda
@@ -3874,7 +3884,7 @@ def bundle_vs_live(K, model, cfg, itos, reqs, bs, what, key, beam_width=1,
     from bmhrl_tpu_torch.serve_export import (ExportedCaptionServer,
                                               export_decode_bundle)
 
-    root = tempfile.mkdtemp()
+    root = keep or tempfile.mkdtemp()
     try:
         shapes = sorted({(bs, vb, ab) for _, vb, ab in plan_batches(
             reqs, cfg, bs)})
@@ -3888,7 +3898,8 @@ def bundle_vs_live(K, model, cfg, itos, reqs, bs, what, key, beam_width=1,
         server = ExportedCaptionServer(root, cfg.video_features_path,
                                        cfg.audio_features_path, "cuda")
     finally:
-        shutil.rmtree(root)
+        if keep is None:
+            shutil.rmtree(root)
     live = CaptionServer(cfg, model, itos, device="cuda",
                          beam_width=beam_width,
                          length_penalty=length_penalty)
@@ -3911,6 +3922,8 @@ def bundle_vs_live(K, model, cfg, itos, reqs, bs, what, key, beam_width=1,
             rates[name].append(len(reqs) / (time.perf_counter() - t))
     (want, _, l_live), (got, stats, l_bundle) = runs["live"], runs["bundle"]
     sents = [s["sentence"] for segs in got["results"].values() for s in segs]
+    rate = {k: statistics.median(v) if turns else None
+            for k, v in rates.items()}
     emit({"phase": "export", "what": what, "B": bs,
           "beam_width": beam_width, "shapes": manifest["shapes"],
           "export_s": export_s, "export_s_per_program": manifest["export_s"],
@@ -3922,9 +3935,9 @@ def bundle_vs_live(K, model, cfg, itos, reqs, bs, what, key, beam_width=1,
           "state": manifest["state"], "answered": len(sents),
           "equal_to_live": got == want, "launches_bundle": l_bundle,
           "launches_live": l_live, "stats": stats.summary(),
-          "clips_per_s_bundle": statistics.median(rates["bundle"])
-          if turns else None,
-          "clips_per_s_live": statistics.median(rates["live"])
+          "clips_per_s_bundle": rate["bundle"],
+          "clips_per_s_live": rate["live"],
+          "bundle_over_live": rate["bundle"] / rate["live"]
           if turns else None, "samples": rates, "example": sents[:3]})
     if len(sents) != len(reqs) or not all(sents) or got != want:
         raise AssertionError(f"{what}: bundle answered {len(sents)}, equal "
@@ -3944,18 +3957,21 @@ def bundle_vs_live(K, model, cfg, itos, reqs, bs, what, key, beam_width=1,
         raise AssertionError(f"{what} launches: {l_bundle}")
     for name, n in l_bundle.items():
         K[name].rec[f"launches_bundle_{key}"] = n
-    return server
+    return server, got, l_bundle
 
 
-def phase_export(K, model):
+def phase_export(K, model, keep_root):
     """AOT serving bundles (``serve_export``) on the card: the four kernel
     ops pass ``torch.library.opcheck`` with CUDA tensors at serving shapes;
     the flagship (``model``: the serve phase's, seed-0 weights) exported
     greedy and beam W=4 for the 64 requests at B=32 and served from the
     bundle against the live CaptionServer in this call (``bundle_vs_live``:
     the same submissions and launches), greedy clips/s of both taking
-    turns; the bundle's loop syncs the host once per token; AHRL and DETR
-    bundles on 8 requests; a JAX bundle is refused."""
+    turns (the bundle's dynamic row axis and its extra head program a
+    token are in its time); the bundle's loop syncs the host once per
+    token; AHRL and DETR bundles on 8 requests; a JAX bundle is refused.
+    The two flagship bundles stay under ``keep_root`` for the mesh phase:
+    returns {"greedy"/"beam4": (dir, submission, launches)}."""
     import torch
 
     from bmhrl_tpu_torch.cli.serve_captions import load_captioner
@@ -3998,10 +4014,18 @@ def phase_export(K, model):
         vdir, adir, reqs = write_requests(root)
         cfg = Config().replace(video_features_path=vdir,
                                audio_features_path=adir)
-        greedy = bundle_vs_live(K, model, cfg, itos, reqs, 32,
-                                "BMHRL greedy", "serve", turns=3)
-        bundle_vs_live(K, model, cfg, itos, reqs, 32, "BMHRL beam W=4",
-                       "beam", beam_width=4, length_penalty=1.0)
+        kept = {}
+        for name, W, lp, turns in (("greedy", 1, 0.0, 3),
+                                   ("beam4", 4, 1.0, 0)):
+            out = os.path.join(keep_root, name)
+            os.makedirs(out)
+            server, pred, launches = bundle_vs_live(
+                K, model, cfg, itos, reqs, 32, f"BMHRL {name}",
+                "serve" if W == 1 else "beam", beam_width=W,
+                length_penalty=lp, turns=turns, keep=out)
+            kept[name] = (out, pred, launches)
+            if W == 1:
+                greedy = server
 
         # one host sync per token in the bundle's loop (it never stops
         # early with EOS out of reach)
@@ -4045,6 +4069,7 @@ def phase_export(K, model):
             emit({"phase": "export", "jax_bundle_refused": str(e)})
         else:
             raise AssertionError("a JAX bundle was not refused")
+    return kept
 
 
 # --------------------------------------------------------------------------
@@ -4197,33 +4222,94 @@ def mesh_flagship_serve(mesh, device, vdir, adir, reqs, model=None,
     return server.caption(reqs, batch_size=batch_size)[0]
 
 
-def mesh_rank(mesh, small, vdir, adir, reqs, tokens, want):
+def rig_serve(server, reqs, bs):
+    """One counted serve of ``reqs`` at batch ``bs`` (after a warm-up on
+    three of them): the submission, this rank's kernel launches, its
+    all_reduce calls, the program calls of a bundle's server (None for a
+    live one) and the seconds."""
+    import torch
+
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.parallel import mesh as mesh_lib
+
+    server.caption(reqs[:3], batch_size=bs)
+    calls0 = dict(getattr(server, "program_calls", {}))
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    mesh_lib.reset_collectives()
+    t0 = time.perf_counter()
+    pred = server.caption(reqs, batch_size=bs)[0]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    calls = ({k: v - calls0[k] for k, v in server.program_calls.items()}
+             if calls0 else None)
+    return {"pred": pred, "launches": dict(_cuda.LAUNCHES),
+            "all_reduce": mesh_lib.COLLECTIVES["all_reduce"],
+            "program_calls": calls, "seconds": secs}
+
+
+def bundle_rank_serve(mesh, bundle_dir, vdir, adir, reqs, bs):
+    """``rig_serve`` of the bundle in ``bundle_dir`` on this rank
+    (``ExportedCaptionServer(mesh=...)``), with every rank's load
+    seconds."""
+    import torch
+
+    from bmhrl_tpu_torch.parallel import mesh as mesh_lib
+    from bmhrl_tpu_torch.serve_export import ExportedCaptionServer
+
+    server = ExportedCaptionServer(bundle_dir, vdir, adir,
+                                   device=mesh.device, mesh=mesh)
+    out = rig_serve(server, reqs, bs)
+    out["load_s"] = mesh_lib.gather_rows(torch.tensor(
+        [server.load_s], device=mesh.device), mesh).tolist()
+    out["backend"] = mesh.backend
+    return out
+
+
+def mesh_rank(mesh, small, vdir, adir, reqs, tokens, want, bundles,
+              small_bundle):
     """One of the two gloo ranks sharing the card: the small f32 sequence
     and the flagship's serve, with this rank's kernel launches, then the
     flagship's steps fed one process's greedy ``tokens`` (``forced_steps``
-    on this rank's rows of the 64-clip batch)."""
+    on this rank's rows of the 64-clip batch); then the export phase's
+    flagship bundles (``bundles``: {"greedy"/"beam4": dir}) and the live
+    server with the same fixed batch shapes, each through ``rig_serve``,
+    and the small f32 model's bundle on ``small``'s requests at batch 2
+    (one row a rank)."""
     import torch
 
     from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import SPECIALS
     from bmhrl_tpu_torch.ops import _cuda
     from bmhrl_tpu_torch.ops.masking import make_masks
     from bmhrl_tpu_torch.parallel import mesh as mesh_lib
+    from bmhrl_tpu_torch.serve import CaptionServer
 
     torch.backends.cuda.matmul.allow_tf32 = False  # as the parent
     _cuda.reset_launches()
     t0 = time.perf_counter()
     out = {"small": mesh_small_run(mesh, mesh.device, small)}
     out["small_s"] = time.perf_counter() - t0
+    model = build_model(Config().agent_kwargs(VOC), mesh.device)
     t0 = time.perf_counter()
     _cuda.reset_launches()
     mesh_lib.reset_collectives()
     out["flagship"] = mesh_flagship_serve(mesh, mesh.device, vdir, adir,
-                                          reqs)
+                                          reqs, model)
     torch.cuda.synchronize()
     out["flagship_s"] = time.perf_counter() - t0
     out["flagship_launches"] = dict(_cuda.LAUNCHES)
     out["flagship_collectives"] = dict(mesh_lib.COLLECTIVES)
-    model = build_model(Config().agent_kwargs(VOC), mesh.device)
+    cfg = Config().replace(video_features_path=vdir, audio_features_path=adir)
+    itos = SPECIALS + [f"w{i}" for i in range(VOC - 4)]
+    for name, W, lp in (("greedy", 1, 0.0), ("beam4", 4, 1.0)):
+        live = CaptionServer(cfg, model, itos, device=mesh.device,
+                             beam_width=W, length_penalty=lp, mesh=mesh)
+        live._fixed_batch = True
+        out[f"live_{name}"] = rig_serve(live, reqs, 32)
+        out[f"bundle_{name}"] = bundle_rank_serve(mesh, bundles[name], vdir,
+                                                  adir, reqs, 32)
+    out["small_bundle"] = bundle_rank_serve(mesh, small_bundle, *small, 2)
     mesh_lib.replicate(model, mesh)
     rows = mesh.rows(tokens.shape[0])
     feats = {k: v[rows] for k, v in make_feats(64, 128, 256, 1024, 128,
@@ -4417,7 +4503,64 @@ def mesh_nccl_methods(mesh, n_params):
         raise AssertionError(f"NCCL collectives: {ok}, syncs {syncs}")
 
 
-def mesh_two_gloo_ranks(model):
+def small_bundle(root, small):
+    """The small f32 model (seed 3) exported greedily for ``small``'s
+    requests at batch 2 into ``root`` and served from there in this
+    process: (dir, submission)."""
+    import torch
+
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import SPECIALS
+    from bmhrl_tpu_torch.serve_export import (ExportedCaptionServer,
+                                              export_decode_bundle)
+
+    vdir, adir, reqs = small
+    cfg = Config(video_features_path=vdir, audio_features_path=adir,
+                 d_vid=128, d_aud=128, video_buckets=(128,),
+                 audio_buckets=(160,), pad_video_feats_up_to=128,
+                 pad_audio_feats_up_to=160, max_len=12)
+    model = build_model(dict(SMALL, dtype=torch.float32), "cuda", seed=3)
+    itos = SPECIALS + [f"w{i}" for i in range(SMALL["voc_size"] - 4)]
+    export_decode_bundle(cfg, model, itos, [(2, 128, 160)], root)
+    pred = ExportedCaptionServer(root, vdir, adir, "cuda").caption(
+        reqs, batch_size=2)[0]
+    return root, pred
+
+
+def mesh_bundle_world_of_one(K, bundles):
+    """The export phase's greedy flagship bundle served by a world of 1
+    over NCCL started as the CLI starts ranks (``spawn(world=1)``): its
+    submission bit-equal to the same bundle's without a mesh, with equal
+    launches per kernel route (the ``kernels`` line's
+    ``launches_bundle_mesh_serve``)."""
+    from bmhrl_tpu_torch.parallel import mesh as mesh_lib
+
+    bundle_dir, want, want_launches = bundles["greedy"]
+    with tempfile.TemporaryDirectory() as root:
+        vdir, adir, reqs = write_requests(root)
+        t0 = time.perf_counter()
+        got = mesh_lib.spawn(bundle_rank_serve, 1, "cuda",
+                             args=(bundle_dir, vdir, adir, reqs, 32))
+        spawn_s = time.perf_counter() - t0
+    emit({"phase": "mesh", "rig": "world of 1 (nccl)", "what":
+          "greedy bundle (spawned rank)", "backend": got["backend"],
+          "identical_to_no_mesh_bundle": got["pred"] == want,
+          "launches": got["launches"], "launches_no_mesh": want_launches,
+          "all_reduce": got["all_reduce"],
+          "program_calls": got["program_calls"], "load_s": got["load_s"],
+          "clips_per_s": len(reqs) / got["seconds"],
+          "seconds": {"spawn_total": spawn_s, "serve": got["seconds"]}})
+    if got["backend"] != "nccl" or got["pred"] != want:
+        raise AssertionError("bundle on a world of 1: the submission "
+                             "differs from no mesh's")
+    if got["launches"] != want_launches:
+        raise AssertionError(f"bundle on a world of 1: launches "
+                             f"{got['launches']} != {want_launches}")
+    for name, n in got["launches"].items():
+        K[name].rec["launches_bundle_mesh_serve"] = n
+
+
+def mesh_two_gloo_ranks(model, bundles):
     """Two gloo ranks sharing cuda:0 (``spawn(devices=["cuda:0"] * 2,
     backend="gloo")``, the rig's choice: NCCL refuses two ranks on one
     card) against one process on the card: the small f32 sequence (tokens
@@ -4429,7 +4572,12 @@ def mesh_two_gloo_ranks(model):
     tokens of a 64-clip batch must choose that process's token at >= 95%
     of the steps (the repo's bf16 agreement measure). The witness: one
     process serving at the ranks' 16 rows a batch; the ranks' identical
-    share may fall at most 0.1 below its share against 32 rows."""
+    share may fall at most 0.1 below its share against 32 rows. Then the
+    export phase's greedy and beam W=4 bundles (``bundles``) on the ranks
+    (16 rows a rank): captions identical to the live server's on the same
+    ranks with the same batch shapes, the same launches per route on rank
+    0 and the same all-reduces; and the small f32 bundle on the ranks (one
+    row a rank) gives its one-process submission."""
     import torch
 
     from bmhrl_tpu_torch.data.vocab import BOS, PAD
@@ -4440,6 +4588,8 @@ def mesh_two_gloo_ranks(model):
     with tempfile.TemporaryDirectory() as root:
         small = write_small_requests(os.path.join(root, "small"))
         vdir, adir, reqs = write_requests(os.path.join(root, "flagship"))
+        small_dir, small_pred = small_bundle(os.path.join(root, "bundle"),
+                                             small)
         one = mesh_small_run(None, "cuda", small)
         want = mesh_flagship_serve(None, "cuda", vdir, adir, reqs, model)
         # the witness: one process at the ranks' 16 rows a batch
@@ -4453,7 +4603,9 @@ def mesh_two_gloo_ranks(model):
         two = mesh_lib.spawn(mesh_rank, 2, "cuda", backend="gloo",
                              devices=["cuda:0", "cuda:0"],
                              args=(small, vdir, adir, reqs, tokens.cpu(),
-                                   want_args.cpu()))
+                                   want_args.cpu(),
+                                   {k: v[0] for k, v in bundles.items()},
+                                   small_dir))
         spawn_s = time.perf_counter() - t0
     got = two["small"]
     same = {k: bool(torch.equal(got[k], one[k]))
@@ -4505,14 +4657,58 @@ def mesh_two_gloo_ranks(model):
         raise AssertionError(f"2 ranks, flagship: identical share {share} "
                              f"against one process at 16 rows' {share16}")
     check_serve_launches("2 ranks, flagship", two["flagship_launches"])
+    bundles_on_two_gloo_ranks(two, small_pred, len(reqs))
 
 
-def phase_mesh(K, model, paths):
+def bundles_on_two_gloo_ranks(two, small_pred, n_reqs):
+    """The gates and the line of the bundles served on the two gloo ranks
+    (``mesh_rank``): each flagship bundle against the live server on the
+    same ranks, and the small f32 bundle against its one process. The
+    rig's clips/s are two processes on one card: no speed of data
+    parallelism."""
+    for name in ("greedy", "beam4"):
+        live, bundle = two[f"live_{name}"], two[f"bundle_{name}"]
+        tokens = bundle["program_calls"].get("head", 0)
+        emit({"phase": "mesh", "rig": "2 gloo ranks on cuda:0",
+              "what": f"flagship {name} bundle vs live", "rows_a_rank": 16,
+              "identical_captions": bundle["pred"] == live["pred"],
+              "launches_rank0": bundle["launches"],
+              "launches_rank0_live": live["launches"],
+              "all_reduce": bundle["all_reduce"],
+              "all_reduce_live": live["all_reduce"],
+              "all_reduce_per_token": bundle["all_reduce"] / tokens,
+              "program_calls": bundle["program_calls"],
+              "program_calls_per_token": sum(
+                  v for k, v in bundle["program_calls"].items()
+                  if k != "setup") / tokens,
+              "load_s_per_rank": bundle["load_s"],
+              "clips_per_s_rig": {"bundle": n_reqs / bundle["seconds"],
+                                  "live": n_reqs / live["seconds"]}})
+        if bundle["pred"] != live["pred"]:
+            raise AssertionError(f"2 ranks, {name} bundle: captions differ "
+                                 "from the live server's")
+        if (bundle["launches"] != live["launches"]
+                or bundle["all_reduce"] != live["all_reduce"]):
+            raise AssertionError(f"2 ranks, {name} bundle: launches or "
+                                 "all-reduces differ from live")
+    got = two["small_bundle"]
+    emit({"phase": "mesh", "rig": "2 gloo ranks on cuda:0",
+          "what": "small f32 bundle (1 row a rank) vs one process",
+          "identical": got["pred"] == small_pred,
+          "program_calls": got["program_calls"], "load_s": got["load_s"]})
+    if got["pred"] != small_pred:
+        raise AssertionError("2 ranks, small f32 bundle: the submission "
+                             "differs from one process's")
+
+
+def phase_mesh(K, model, paths, bundles):
     """Data parallelism (``parallel.mesh``) on the one card: a world of 1
-    over NCCL through the production path, then two gloo ranks on the
-    card against one process."""
+    over NCCL through the production path, for the live model and for the
+    export phase's greedy bundle (``bundles``), then two gloo ranks on the
+    card against one process, the bundles among them."""
     mesh_world_of_one(K, model, paths)
-    mesh_two_gloo_ranks(model)
+    mesh_bundle_world_of_one(K, bundles)
+    mesh_two_gloo_ranks(model, bundles)
 
 
 def span_busy(prof, prefix):
@@ -4675,7 +4871,8 @@ def main() -> int:
         raise AssertionError(f"attention kernel spills: {spills}")
 
     K = kernel_records()
-    made = {}
+    # the export phase's flagship bundles, served again by the mesh phase
+    made = {"bundle_root": tempfile.mkdtemp(prefix="bmhrl_bundles_")}
     phases = (("kernels", lambda: phase_kernels(K)),
               ("reference", lambda: phase_reference(K)),
               ("serve", lambda: made.update(serve=phase_serve(K))),
@@ -4687,21 +4884,26 @@ def main() -> int:
               ("detr", lambda: phase_detr(K, made["serve"])),
               ("leftovers", lambda: phase_leftovers(K)),
               ("proposals", lambda: phase_proposals(K, made["serve"])),
-              ("export", lambda: phase_export(K, made["serve"])),
+              ("export", lambda: made.update(bundles=phase_export(
+                  K, made["serve"], made["bundle_root"]))),
               ("mesh", lambda: phase_mesh(K, made["serve"],
-                                          made["train_loop"])),
+                                          made["train_loop"],
+                                          made["bundles"])),
               # the profiler runs last: once it has traced, the host
               # launches more slowly
               ("profile", lambda: (profile_decode(made["serve"]),
                                    profile_decode(made["serve"], 64, 4),
                                    profile_train(*made["train"]),
                                    profile_train_loop(made["train_loop"]))))
-    for name, phase in phases:
-        t0 = time.perf_counter()
-        log(f"chip_smoke: phase {name}")
-        phase()
-        torch.cuda.synchronize()
-        emit({"phase": name, "seconds": time.perf_counter() - t0})
+    try:
+        for name, phase in phases:
+            t0 = time.perf_counter()
+            log(f"chip_smoke: phase {name}")
+            phase()
+            torch.cuda.synchronize()
+            emit({"phase": name, "seconds": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(made["bundle_root"], ignore_errors=True)
 
     kernels = [K[n].rec for n in ("flash_tc", "flash_simt", "folded_tc",
                                   "folded_simt", "lstm_cell", "gru_cell")]

@@ -319,18 +319,56 @@ def test_serve_captions_cli_matches_jax(corpus, serve_pt, tmp_path, extra,
     (["--checkpoint_dir", "ckpt"], "export_torch_bmhrl"),
     (["--mesh", "2"], None),
     (["--from_bundle", "jax_bundle"], "run only under JAX"),
-    (["--from_bundle", "jax_bundle", "--mesh", "2"], "not ported yet")])
+    (["--from_bundle", "bundle", "--mesh", "2"], None)])
 def test_serve_captions_cli_refuses_what_is_not_ported(corpus, serve_pt,
                                                         tmp_path, flags,
-                                                        message):
-    """--from_bundle with --mesh > 1 exits "not ported yet" (a bundle's
-    step computes the cross-row goals inside itself); --mesh 2 alone now
-    serves on two ranks, and with batches of 4 (the tail of 3 padded to 4,
-    a multiple of the ranks) gives the one process's submission;
+                                                        message, capfd):
+    """--mesh 2 serves on two ranks, and with batches of 4 (the tail of 3
+    padded to 4, a multiple of the ranks) gives the one process's
+    submission; --export_bundle with --mesh 2 exports in one process and
+    --from_bundle with --mesh 2 serves that bundle on two ranks, with the
+    JAX CLI's submission and stats line from its bundle on its (2, 1) mesh;
     --checkpoint_dir reads the port's own checkpoints and refuses an orbax
     directory (the JAX package's) with the export message; --from_bundle
     refuses a JAX bundle (jax.export blobs run only under JAX)."""
     from bmhrl_tpu_torch.cli.serve_captions import main
+
+    if message is None and flags[0] == "--from_bundle":
+        from cli.serve_captions import main as jmain
+
+        from torch_port_common import jax_kernels
+
+        mesh = ["--mesh", "2"]
+        bundle, jbundle = str(tmp_path / "bundle"), str(tmp_path / "jax")
+        got_out, want_out = (str(tmp_path / "port.json"),
+                             str(tmp_path / "jax.json"))
+        main(_serve_args(corpus, serve_pt, got_out, [
+            "--device", "cpu", "--export_bundle", bundle] + mesh))
+        capfd.readouterr()
+        stats = main(_serve_args(corpus, serve_pt, got_out, [
+            "--device", "cpu", "--from_bundle", bundle] + mesh))
+        port_lines = capfd.readouterr().out.splitlines()
+        # JAX without its Pallas kernels: the padded row is fully masked
+        with jax_kernels(flash=False, folded=False):
+            jmain(_serve_args(corpus, serve_pt, want_out,
+                              ["--export_bundle", jbundle]))
+            capfd.readouterr()
+            jstats = jmain(_serve_args(corpus, serve_pt, want_out,
+                                       ["--from_bundle", jbundle] + mesh))
+        jax_lines = capfd.readouterr().out.splitlines()
+        with open(got_out) as f, open(want_out) as g:
+            got, want = json.load(f), json.load(g)
+        assert got == want
+        assert sum(len(s) for s in got["results"].values()) == 11
+        assert (stats.clips, stats.batches, stats.padded_rows) == (
+            jstats.clips, jstats.batches, jstats.padded_rows) == (11, 3, 1)
+        # each rank printed its load seconds; the stats line is JAX's
+        loads = [json.loads(x) for x in port_lines if x.startswith(
+            '{"rank"')]
+        assert sorted(x["rank"] for x in loads) == [0, 1]
+        assert json.loads(port_lines[-1]).keys() == json.loads(
+            jax_lines[-1]).keys()
+        return
 
     if message is None:
         outs = [str(tmp_path / f"mesh{n}.json") for n in (1, 2)]

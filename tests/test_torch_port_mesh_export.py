@@ -6,8 +6,8 @@ with beam search (W=2), it gives the live port server's submission (both
 pad the tail of 3 to the batch of 4), at tiny dims (5 tokens: the step
 unrolls the critic's scan over the buffer) on the CPU. Greedily:
 tests/test_torch_port_export_modes.py against the live server,
-tests/test_torch_port_mesh_export_jax.py against JAX's bundle. A bundle
-over ranks stays refused (tests/test_torch_port_entry.py)."""
+tests/test_torch_port_mesh_export_jax.py against JAX's bundle; on two
+data-parallel ranks: tests/test_torch_port_bundle_ranks_modes.py."""
 import pytest
 from test_torch_port_export import BS, TINY, corpus  # noqa: F401 (fixture)
 from torch_port_common import one_torch_thread  # noqa: F401 (autouse)

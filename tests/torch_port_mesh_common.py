@@ -326,3 +326,42 @@ def serve_rank(mesh, dims, tree, cfg_fields, itos, runs):
             io_threads=2)
         out.append((got, stats.summary(), made[0].drawn if made else []))
     return out
+
+
+# ---- serving AOT bundles -------------------------------------------------------
+def bundle_serve_rank(mesh, runs, reqs, batch_size=4):
+    """For each run of ``runs`` the server on this rank serving ``reqs``
+    (a list of ``serve.ClipRequest``) at ``batch_size``: ("bundle", dir,
+    video_dir, audio_dir) an ``ExportedCaptionServer`` of that bundle, ("live", cfg_fields,
+    voc_size, tree, itos, options) a ``CaptionServer`` of the model of
+    ``Config(**cfg_fields)`` with the flax-layout ``tree`` (fixed batch
+    shapes, as the bundle's). Returns rank 0's list of (submission, stats
+    summary, all_reduce calls of the serve, every rank's load seconds or
+    None)."""
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.serve import CaptionServer
+    from bmhrl_tpu_torch.serve_export import ExportedCaptionServer
+    from bmhrl_tpu_torch.train.loop import build_model
+    from bmhrl_tpu_torch.weights import load_jax_params
+
+    out = []
+    for run in runs:
+        load_s = None
+        if run[0] == "bundle":
+            server = ExportedCaptionServer(*run[1:], device="cpu",
+                                           mesh=mesh)
+            load_s = gathered(mesh, torch.tensor([server.load_s])).tolist()
+        else:
+            fields, voc, tree, itos, opts = run[1:]
+            cfg = Config(**fields)
+            model = load_jax_params(build_model(cfg, voc, "cpu"), tree)
+            model.eval().requires_grad_(False)
+            server = CaptionServer(cfg, model, itos, device="cpu", mesh=mesh,
+                                   **opts)
+            server._fixed_batch = True
+        mesh_lib.reset_collectives()
+        got, stats = server.caption(reqs, batch_size=batch_size,
+                                    io_threads=2)
+        out.append((got, stats.summary(),
+                    mesh_lib.COLLECTIVES["all_reduce"], load_s))
+    return out
