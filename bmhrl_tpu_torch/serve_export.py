@@ -24,7 +24,8 @@ within one side of the flash gate (dynamic lengths):
   but the loop's stop): one whole token, as ``fast_step``.
 
 Every program's row axis is dynamic (``torch.export.Dim`` "clips", and
-clips x W rows for beam search), from 1 to the exported batch's clips:
+clips x W rows for beam search), from 1 to the exported batch's clips
+(static for a batch of one clip, which serves one device):
 one bundle, exported once at the global batch size, serves B / n clips on
 each of n data-parallel ranks (``ExportedCaptionServer(mesh=...)``), as a
 JAX bundle serves any mesh that divides its batch sizes. Each token
@@ -304,9 +305,10 @@ def _leaf_dims(first, last, wider, ends: Dict[Tuple[int, int], object],
                grow: Dict[Tuple[int, int], object]):
     """Dynamic-shape specs of the program inputs ``first`` (at the group's
     first shape), ``last`` (at its last) and ``wider`` (at the first shape
-    with one clip more). The row axis is told by position: axis 0 of an
-    input that grows with the clips takes the Dim of ``grow`` (its sizes
-    at B and B + 1 clips: the clips' Dim, or the rows' for B x W rows).
+    with one clip more; ``first`` where the rows stay static). The row
+    axis is told by position: axis 0 of an input that grows with the clips
+    takes the Dim of ``grow`` (its sizes at B and B + 1 clips: the clips'
+    Dim, or the rows' for B x W rows).
     Each other axis whose size moves from one end of a length's range to
     the other takes that length's Dim."""
     specs = []
@@ -438,7 +440,8 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
         first = dry_run(*group[0])
         last = dry_run(*group[-1]) if len(group) > 1 else first
         # which inputs grow with the clips: a dry run with one clip more
-        wider = dry_run(B + 1, v0, a0)[0]
+        # (a batch of one clip keeps its row axis static)
+        wider = dry_run(B + 1, v0, a0)[0] if B > 1 else first[0]
         runs, skels, carried, (n_state, n_leaves) = first
         spec = {"leaves": n_state, "carried": carried}
         if state_spec not in (None, spec) or last[2] != carried:
@@ -451,8 +454,8 @@ def export_decode_bundle(cfg, model, itos: Sequence[str],
             ends[v0, v1] = vdim
         if adim is not None:
             ends[a0, a1] = adim
-        clips = torch.export.Dim("clips", min=1, max=B)
-        rows = clips if W == 1 else W * clips
+        clips = _dim("clips", 1, B)
+        rows = clips if clips is None or W == 1 else W * clips
         grow = {(B, B + 1): clips, (W * B, W * (B + 1)): rows}
 
         def state_of(rest, reads):

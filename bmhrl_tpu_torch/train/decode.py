@@ -139,32 +139,6 @@ def _decode_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
                       pad_idx, greedy, draws, sample_args, model.mesh)
 
 
-def full_buffer_step(model, trg, labels, t: torch.Tensor, crit, crit_w, Va,
-                     Av, masks_src, fusion_kv, pad_idx: int,
-                     exploration: bool = False,
-                     draws: Optional[Draws] = None):
-    """One step of the full-buffer loop at position t (a 0-d int64
-    tensor): advance the critic with token t of the buffer trg (B, L),
-    write its segment label into ``labels`` (in place), then the log-probs
-    (B, V) at t (``decode_frontier``). Returns (log-probs, critic state)."""
-    crit = _label_step(model, trg, labels, t, crit, crit_w)
-    masks = dict(masks_src, C_mask=c_mask(trg, pad_idx))
-    return model.decode_frontier(trg, labels, Va, Av, masks, t, exploration,
-                                 fusion_kv, draws), crit
-
-
-def _label_step(model, trg, labels, t: torch.Tensor, crit, crit_w):
-    """Advance the critic with token t of the buffer trg and write its
-    segment label into ``labels`` (in place). Returns the critic state."""
-    at = t.reshape(1)
-    score_t, crit = model.critic_step(trg.index_select(1, at)[:, 0], crit,
-                                      crit_w)
-    labels.index_copy_(1, at, (torch.sigmoid(score_t)
-                               > model.critic_score_threshold).to(
-                                   torch.int32)[:, None])
-    return crit
-
-
 def full_state(model, Va, Av, masks_src, B: int, L: int,
                beam_share: int = 1, start_idx: int = BOS,
                pad_idx: int = PAD):
@@ -198,11 +172,14 @@ def full_step_head(model, tok_t, t: torch.Tensor, caches, inv):
     then the model's ``frontier_head``. Returns (head, caches with the
     critic state new, the rows' boundary flags the ranks exchange, or
     None where the model has no cross-row rule)."""
-    trg = caches["trg"]
-    trg.index_copy_(1, t.reshape(1), tok_t[:, None])
-    crit = _label_step(model, trg, caches["labels"], t, caches["crit"],
-                       inv["crit_w"])
-    head, flag = model.frontier_head(trg, caches["labels"])
+    trg, labels = caches["trg"], caches["labels"]
+    at = t.reshape(1)
+    trg.index_copy_(1, at, tok_t[:, None])
+    score_t, crit = model.critic_step(tok_t, caches["crit"], inv["crit_w"])
+    labels.index_copy_(1, at, (torch.sigmoid(score_t)
+                               > model.critic_score_threshold).to(
+                                   torch.int32)[:, None])
+    head, flag = model.frontier_head(trg, labels)
     return head, dict(caches, crit=crit), flag
 
 

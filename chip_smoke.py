@@ -1272,33 +1272,29 @@ def score_gap(model, feats, masks, tokens, scores, end_idx, rows_per_clip):
 
 
 def full_buffer_forced(model, feats, masks, tokens):
-    """Per-step argmax agreement of the full-buffer step with ``tokens``
-    (a fast decode's), the buffer fed those tokens, and the flash launches
-    of the steps (the encoder's excluded)."""
+    """Per-step argmax agreement of the full-buffer token
+    (``train.decode.full_step``, the production loop's, on
+    ``full_state``'s start) with ``tokens`` (a fast decode's), the buffer
+    fed those tokens (it starts with <s>), and the flash launches of the
+    steps (the encoder's and the memory projections' excluded)."""
     import torch
 
     from bmhrl_tpu_torch.ops import _cuda
-    from bmhrl_tpu_torch.train.decode import full_buffer_step
+    from bmhrl_tpu_torch.train.decode import full_state, full_step
 
     B, L = tokens.shape
     with torch.no_grad():
         Va, Av = model.encode(feats["rgb"] + feats["flow"], feats["audio"],
                               masks)
-        kv = model.precompute_fusion_kv(Va, Av)
-        crit_w = model.critic.step_weights()
-        crit = model.critic_init_state(B)
-        trg = torch.full_like(tokens, 1)
-        trg[:, 0] = tokens[:, 0]
-        labels = torch.zeros_like(tokens, dtype=torch.int32)
+        caches, valid, inv = full_state(model, Va, Av, masks, B, L)
         positions = torch.arange(L, device=tokens.device)
         torch.cuda.synchronize()
         _cuda.reset_launches()
         same = []
         for t in range(L - 1):
-            logp, crit = full_buffer_step(model, trg, labels, positions[t],
-                                          crit, crit_w, Va, Av, masks, kv, 1)
+            logp, caches = full_step(model, tokens[:, t], positions[t],
+                                     caches, valid, inv)
             same.append(logp.argmax(-1) == tokens[:, t + 1])
-            trg[:, t + 1] = tokens[:, t + 1]
         torch.cuda.synchronize()
         launches = dict(_cuda.LAUNCHES)
     return float(torch.stack(same).float().mean()), launches

@@ -12,7 +12,9 @@ same tree (JAX without its Pallas kernels: plain XLA, as in
 tests/test_torch_port_mesh_serve.py, because the padded row is fully
 masked). The tree's critic labels about half the tokens boundaries
 (``mix_critic_labels``), so rows' goals depend on other rows' boundary
-flags. The bundle issues the live server's all-reduces, and a world that
+flags: every token's log-probs on both ranks equal the live server's bit
+for bit, and differ when rank 0's body is fed the flags of a batch held
+whole. The bundle issues the live server's all-reduces, and a world that
 does not divide the bundle's batch size is refused at load. Beam search:
 tests/test_torch_port_bundle_ranks_beam.py; AHRL, the DETR's pre-goal path
 and the programs at a rank's row counts:
@@ -83,7 +85,9 @@ def serve_four_ways(flagship, corpus, W: int):
     """The port bundle (beam width W) exported once here, and its
     submission on 2 ranks, the live 2-rank server's, the bundle's in one
     process (and that server) and JAX's bundle on its (2, 1) mesh, with
-    the 2-rank runs' all-reduces and load seconds."""
+    the 2-rank runs' all-reduces, load seconds and log-probs, and the
+    bundle's 2-rank run with rank 0's body fed the flags of a batch held
+    whole ("alone")."""
     cfg, jcfg, vocab, model, jmodel, tree, reqs = flagship
     shapes = sorted({(BS, vb, ab) for _, vb, ab in plan_batches(reqs, cfg,
                                                                 BS)})
@@ -94,9 +98,10 @@ def serve_four_ways(flagship, corpus, W: int):
                                       beam_width=W, length_penalty=0.5)
     runs = [("bundle", out, *feats.values()),
             ("live", dict(mode="BMHRL", **TINY, **feats), len(vocab), tree,
-             vocab.itos, dict(beam_width=W, length_penalty=0.5))]
-    bundle, live = mesh_lib.spawn(bundle_serve_rank, 2, "cpu",
-                                  args=(runs, reqs), threads=1)
+             vocab.itos, dict(beam_width=W, length_penalty=0.5)),
+            ("bundle", out, *feats.values(), 0)]
+    bundle, live, alone = mesh_lib.spawn(bundle_serve_rank, 2, "cpu",
+                                         args=(runs, reqs), threads=1)
     server = serve_export.ExportedCaptionServer(out, *feats.values(),
                                                 device="cpu")
     one, _ = server.caption(reqs, batch_size=BS)
@@ -108,8 +113,8 @@ def serve_four_ways(flagship, corpus, W: int):
                           mesh=jmake_mesh((2, 1), jax.devices()[:2])
                           ).caption(jread_proposals(corpus["proposals"]),
                                     batch_size=BS)
-    return {"bundle": bundle, "live": live, "one": one, "jax": want,
-            "dir": out, "server": server}
+    return {"bundle": bundle, "live": live, "alone": alone, "one": one,
+            "jax": want, "dir": out, "server": server}
 
 
 @pytest.fixture(scope="module", params=[1], ids=["greedy"])
@@ -118,7 +123,8 @@ def served(request, mixed, corpus):
 
 
 def test_bundle_on_two_ranks_equals_live_two_ranks(served):
-    (got, stats, _, load_s), (want, *_) = served["bundle"], served["live"]
+    (got, stats, _, load_s, _), (want, *_) = (served["bundle"],
+                                              served["live"])
     assert got == want
     sents = [s["sentence"] for segs in got["results"].values() for s in segs]
     assert len(sents) == 11 and len(set(sents)) > 1
@@ -140,6 +146,22 @@ def test_bundle_all_reduces_equal_the_live_servers(served):
     batch: the tokens gathered. The same calls as the live server's."""
     got, want = served["bundle"][2], served["live"][2]
     assert got == want and got > 0
+
+
+def test_bundle_log_probs_equal_the_live_servers(served):
+    """Every token's log-probs on both ranks, bit for bit: what the
+    exchanged flags select (each row's goal), not only the tokens."""
+    got, want = served["bundle"][4], served["live"][4]
+    assert got.shape == want.shape and np.array_equal(got, want)
+
+
+def test_log_probs_show_flags_fed_wrong(served):
+    """The check above can fail: rank 0's body fed the flags of a batch
+    held whole (rank 1's boundaries unseen) gives other log-probs. (Rank
+    1's would not show here: its rows' boundaries follow their tokens,
+    which these rows share.)"""
+    got, want = served["alone"][4], served["live"][4]
+    assert got.shape != want.shape or not np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("world", [3, 8])

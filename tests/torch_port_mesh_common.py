@@ -329,15 +329,69 @@ def serve_rank(mesh, dims, tree, cfg_fields, itos, runs):
 
 
 # ---- serving AOT bundles -------------------------------------------------------
+def recorded_log_probs(log):
+    """Patches of the decode's two host loops (``train.decode``'s, which the
+    live server reaches, and ``serve_export``'s names of them) whose step
+    functions append each token's log-probs to ``log``."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from bmhrl_tpu_torch import serve_export
+    from bmhrl_tpu_torch.train import decode
+
+    def recording(loop):
+        def run(caches, valid, step_fn, *args, **kw):
+            def step(*a):
+                logits, caches = step_fn(*a)
+                log.append(logits.clone())
+                return logits, caches
+
+            return loop(caches, valid, step, *args, **kw)
+
+        return run
+
+    stack = ExitStack()
+    for name in ("_fast_loop", "_beam_fast_loop"):
+        loop = recording(getattr(decode, name))
+        for module in (decode, serve_export):
+            stack.enter_context(mock.patch.object(module, name, loop))
+    return stack
+
+
+def alone_on(rank, mesh):
+    """A patch of ``cross_flags`` under which ``rank`` still takes part in
+    the exchange but feeds its body the flags of a batch held whole
+    (``serve_export._alone_flags``): a fault the log-probs must show."""
+    from contextlib import nullcontext
+    from unittest import mock
+
+    from bmhrl_tpu_torch.serve_export import _alone_flags
+
+    if mesh.rank != rank:
+        return nullcontext()
+    exchange = mesh_lib.cross_flags
+
+    def cross_flags(flag, mesh=None):
+        exchange(flag, mesh)
+        return _alone_flags(flag.device)
+
+    return mock.patch.object(mesh_lib, "cross_flags", cross_flags)
+
+
 def bundle_serve_rank(mesh, runs, reqs, batch_size=4):
     """For each run of ``runs`` the server on this rank serving ``reqs``
     (a list of ``serve.ClipRequest``) at ``batch_size``: ("bundle", dir,
-    video_dir, audio_dir) an ``ExportedCaptionServer`` of that bundle, ("live", cfg_fields,
+    video_dir, audio_dir) an ``ExportedCaptionServer`` of that bundle
+    (("bundle", dir, video_dir, audio_dir, r): with rank r's body fed the
+    flags of a batch held whole, ``alone_on``), ("live", cfg_fields,
     voc_size, tree, itos, options) a ``CaptionServer`` of the model of
     ``Config(**cfg_fields)`` with the flax-layout ``tree`` (fixed batch
     shapes, as the bundle's). Returns rank 0's list of (submission, stats
     summary, all_reduce calls of the serve, every rank's load seconds or
-    None)."""
+    None, every rank's log-probs of every token (world, n) in the order
+    the loops made them)."""
+    from contextlib import nullcontext
+
     from bmhrl_tpu_torch.config import Config
     from bmhrl_tpu_torch.serve import CaptionServer
     from bmhrl_tpu_torch.serve_export import ExportedCaptionServer
@@ -346,11 +400,13 @@ def bundle_serve_rank(mesh, runs, reqs, batch_size=4):
 
     out = []
     for run in runs:
-        load_s = None
+        load_s, fault = None, nullcontext()
         if run[0] == "bundle":
-            server = ExportedCaptionServer(*run[1:], device="cpu",
+            server = ExportedCaptionServer(*run[1:4], device="cpu",
                                            mesh=mesh)
             load_s = gathered(mesh, torch.tensor([server.load_s])).tolist()
+            if len(run) > 4:
+                fault = alone_on(run[4], mesh)
         else:
             fields, voc, tree, itos, opts = run[1:]
             cfg = Config(**fields)
@@ -359,9 +415,13 @@ def bundle_serve_rank(mesh, runs, reqs, batch_size=4):
             server = CaptionServer(cfg, model, itos, device="cpu", mesh=mesh,
                                    **opts)
             server._fixed_batch = True
+        log = []
         mesh_lib.reset_collectives()
-        got, stats = server.caption(reqs, batch_size=batch_size,
-                                    io_threads=2)
-        out.append((got, stats.summary(),
-                    mesh_lib.COLLECTIVES["all_reduce"], load_s))
+        with recorded_log_probs(log), fault:
+            got, stats = server.caption(reqs, batch_size=batch_size,
+                                        io_threads=2)
+        calls = mesh_lib.COLLECTIVES["all_reduce"]
+        flat = torch.cat([x.reshape(-1) for x in log])
+        out.append((got, stats.summary(), calls, load_s,
+                    gathered(mesh, flat[None])))
     return out
