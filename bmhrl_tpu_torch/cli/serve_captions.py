@@ -32,12 +32,18 @@ a model, with ``--mesh n`` on n ranks, each loading the bundle
 (``serve_export.ExportedCaptionServer(mesh=...)``; a batch size n does
 not divide exits before the ranks start).
 Prints one JSON stats line (clips/s, latency percentiles, shape count) and
-returns the stats (the manifest after an export).
+returns the stats (the manifest after an export). ``--profile_dir DIR``
+serves (on rank 0) under ``torch.profiler`` with the server's spans on a
+``utils.profiling.StepTimer`` (each span also a ``record_function`` in
+the trace), writes ``DIR/serve_trace.json`` and prints one more line after
+the stats, ``{"spans": <the timer's summary>}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 
 
 def refuse_unported(args) -> None:
@@ -131,6 +137,9 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernels) or cpu (their "
                         "plain versions)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="torch.profiler trace dir (serve_trace.json) and a "
+                        "spans line after the stats")
     p.add_argument("--out", required=True, help="submission JSON path")
     args = p.parse_args(argv)
     refuse_unported(args)
@@ -225,13 +234,29 @@ def _build_and_serve(args, reqs, device, mesh=None):
 
 def _serve(server, reqs, args, main: bool = True):
     """Caption ``reqs``; rank 0 (``main``) writes the submission and
-    prints the stats line."""
-    predictions, stats = server.caption(reqs, batch_size=args.batch_size,
-                                        io_threads=args.io_threads)
+    prints the stats line (``--profile_dir``: the module docstring's)."""
+    profiler, timer = contextlib.nullcontext(), None
+    if args.profile_dir and main:
+        from torch.profiler import ProfilerActivity, profile
+
+        from bmhrl_tpu_torch.utils.profiling import StepTimer
+
+        timer = StepTimer()
+        server.spans = timer.phase
+        profiler = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if server.device.type == "cuda" else []))
+    with profiler:
+        predictions, stats = server.caption(reqs, batch_size=args.batch_size,
+                                            io_threads=args.io_threads)
     if main:
         with open(args.out, "w") as f:
             json.dump(predictions, f)
         print(json.dumps(stats.summary()))
+    if timer is not None:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(args.profile_dir,
+                                                  "serve_trace.json"))
+        print(json.dumps({"spans": timer.summary()}))
     return stats
 
 

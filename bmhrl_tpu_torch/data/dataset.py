@@ -22,7 +22,9 @@ thread: on CUDA it copies each array into pinned host memory and then to
 the card with ``non_blocking=True`` on a side stream, and records an
 event; the consumer makes its current stream wait on that event before it
 hands the batch out. With depth >= 2 the copy of batch t+1 overlaps the
-work of batch t.
+work of batch t. Its ``spans`` (a recorder ``name -> context manager``,
+``utils.profiling``) time each item's staging, on the worker thread, as
+``serve.stage``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from bmhrl_tpu_torch.data import features as F
 from bmhrl_tpu_torch.data.tokenizer import tokenize_lower
 from bmhrl_tpu_torch.data.vocab import (BOS, EOS, PAD, Vocab,
                                         build_vocab_from_tsv)
+from bmhrl_tpu_torch.utils.profiling import no_spans
 
 
 class MetaRow:
@@ -215,7 +218,8 @@ class CaptioningDataset:
 class Prefetcher:
     DEVICE_KEYS = ("rgb", "flow", "audio", "caption_idx")
 
-    def __init__(self, it: Iterator, depth: int = 2, device="cuda"):
+    def __init__(self, it: Iterator, depth: int = 2, device="cuda",
+                 spans=no_spans):
         self.device = resolve_device(device)
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._done = object()
@@ -228,21 +232,8 @@ class Prefetcher:
                 for item in it:
                     event = None
                     if isinstance(item, dict):
-                        item = dict(item)
-                        for k in self.DEVICE_KEYS:
-                            if k not in item:
-                                continue
-                            host = torch.from_numpy(np.ascontiguousarray(
-                                item[k]))
-                            if cuda:
-                                with torch.cuda.stream(side):
-                                    item[k] = host.pin_memory().to(
-                                        self.device, non_blocking=True)
-                            else:
-                                item[k] = host.to(self.device)
-                        if cuda:
-                            event = torch.cuda.Event()
-                            event.record(side)
+                        with spans("serve.stage"):
+                            item, event = self._stage(item, side)
                     self.q.put((item, event))
             except BaseException as e:  # surface loader errors, don't
                 self._error = e         # truncate the stream silently
@@ -251,6 +242,26 @@ class Prefetcher:
 
         self.t = threading.Thread(target=work, daemon=True)
         self.t.start()
+
+    def _stage(self, item: Dict, side):
+        """A copy of ``item`` with its numeric arrays on the device, and
+        the side stream's event after their copies (None off CUDA)."""
+        item = dict(item)
+        for k in self.DEVICE_KEYS:
+            if k not in item:
+                continue
+            host = torch.from_numpy(np.ascontiguousarray(item[k]))
+            if side is not None:
+                with torch.cuda.stream(side):
+                    item[k] = host.pin_memory().to(self.device,
+                                                   non_blocking=True)
+            else:
+                item[k] = host.to(self.device)
+        if side is None:
+            return item, None
+        event = torch.cuda.Event()
+        event.record(side)
+        return item, event
 
     def __iter__(self):
         while True:

@@ -18,6 +18,16 @@ A server of exported programs (``serve_export.ExportedCaptionServer``)
 inherits the scheduling and IO. Results come back in the ANet submission
 format.
 
+Spans: a server's ``spans`` (a recorder ``name -> context manager``, such
+as ``utils.profiling.StepTimer().phase``; by default
+``utils.profiling.no_spans``, which records nothing) goes to the decode
+loops (``decode.setup``, ``decode.step``, ``decode.sync``) and the
+``Prefetcher`` (``serve.stage``, on its thread), and ``caption`` opens
+``serve.load`` around each batch's loading (on the ``Prefetcher``'s
+thread), ``serve.batch_wait`` around the dispatching thread's wait for it
+and ``serve.fetch`` around the copy of its tokens to the host and their
+words. A span adds no sync and changes nothing computed.
+
 Data parallel (``mesh``, ``parallel.mesh``; every rank runs the server on
 the same requests): a batch of ``inference_batch_size`` (the global batch)
 is planned as on one device, then row-padded up to a multiple of the
@@ -53,6 +63,7 @@ from bmhrl_tpu_torch.models.blocks import Draws
 from bmhrl_tpu_torch.ops.masking import make_masks
 from bmhrl_tpu_torch.parallel import mesh as mesh_lib
 from bmhrl_tpu_torch.train.decode import beam_decode, decode, detokenize
+from bmhrl_tpu_torch.utils.profiling import no_spans
 
 
 @dataclass
@@ -274,6 +285,7 @@ class CaptionServer:
         # a server of exported programs (serve_export) runs fixed batch
         # shapes: tails pad to the full batch size
         self._fixed_batch = False
+        self.spans = no_spans
 
     def _mesh_pad(self, b: int) -> int:
         """b rounded up to a multiple of the ranks (the JAX server's
@@ -288,18 +300,19 @@ class CaptionServer:
                 PAD)
         if self.beam_width > 1:
             return beam_decode(*args, beam_width=self.beam_width,
-                               length_penalty=self.length_penalty)[0]
+                               length_penalty=self.length_penalty,
+                               spans=self.spans)[0]
         if self.sample:
             return decode(*args, greedy=False, draws=self._draws,
                           temperature=self.temperature, top_k=self.top_k,
-                          top_p=self.top_p)[0]
-        return decode(*args)[0]
+                          top_p=self.top_p, spans=self.spans)[0]
+        return decode(*args, spans=self.spans)[0]
 
     def caption(self, reqs: Sequence[ClipRequest],
                 batch_size: Optional[int] = None,
                 io_threads: int = 8) -> Tuple[Dict, ServeStats]:
         """Caption every request. Returns (ANet submission dict, stats)."""
-        cfg = self.cfg
+        cfg, spans = self.cfg, self.spans
         bs = batch_size or max(cfg.inference_batch_size, 1)
         plan = plan_batches(reqs, cfg, bs)
         stats = ServeStats()
@@ -316,18 +329,25 @@ class CaptionServer:
                         else min(bs, 1 << (len(idxs) - 1).bit_length()))
                     rows = (None if self.mesh is None
                             else self.mesh.rows(pad_to))
-                    yield _load_batch(reqs, idxs, vb, ab, cfg, pad_to, pool,
-                                      rows)
+                    with spans("serve.load"):
+                        batch = _load_batch(reqs, idxs, vb, ab, cfg, pad_to,
+                                            pool, rows)
+                    yield batch
 
             t0 = time.perf_counter()
-            for batch in Prefetcher(batch_iter(), 2, self.device):
+            batches = iter(Prefetcher(batch_iter(), 2, self.device, spans))
+            for _ in plan:
+                with spans("serve.batch_wait"):
+                    batch = next(batches)
                 bt0 = time.perf_counter()
                 feats = {k: batch[k] for k in ("rgb", "flow", "audio")}
                 tokens = mesh_lib.gather_rows(
                     self._decode(feats, make_masks(feats)), self.mesh)
-                toks = tokens[: batch["n_valid"]].cpu().numpy()
-                for i, sent in zip(batch["idxs"], detokenize(toks, self.itos)):
-                    sentences[i] = sent
+                with spans("serve.fetch"):
+                    toks = tokens[: batch["n_valid"]].cpu().numpy()
+                    for i, sent in zip(batch["idxs"],
+                                       detokenize(toks, self.itos)):
+                        sentences[i] = sent
                 stats.batches += 1
                 stats.clips += batch["n_valid"]
                 stats.padded_rows += tokens.shape[0] - batch["n_valid"]

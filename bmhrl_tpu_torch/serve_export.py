@@ -687,8 +687,9 @@ class ExportedCaptionServer(CaptionServer):
         (constants on one device) and a ``body``."""
         B, W = rgb.shape[0], self.beam_width
         self.program_calls["setup"] += 1
-        state, valid, inv = progs["setup"](*self._inputs["setup"],
-                                           [rgb, flow, audio])
+        with self.spans("decode.setup"):
+            state, valid, inv = progs["setup"](*self._inputs["setup"],
+                                               [rgb, flow, audio])
         carried = self._state["carried"]
 
         def carry(state, new):
@@ -712,9 +713,9 @@ class ExportedCaptionServer(CaptionServer):
         args = (state, valid, step_fn, B)
         if W == 1:
             return _fast_loop(*args, self.cfg.max_len, BOS, EOS, PAD, True,
-                              None, None, self.mesh)[0]
+                              None, None, self.mesh, self.spans)[0]
         return _beam_fast_loop(*args, W, self.cfg.max_len, BOS, EOS, PAD,
-                               self.length_penalty, self.mesh)[0]
+                               self.length_penalty, self.mesh, self.spans)[0]
 
     def caption(self, reqs, batch_size: Optional[int] = None, **kw):
         bs = batch_size or max(self._batch_sizes)

@@ -18,7 +18,7 @@ The fast loop (each model's ``fast_setup``):
   In beam search the W beams of a clip join them too (G = 2 x heads x W),
   so each clip's memory is read once per step for all its beams.
 
-The full-buffer loop (``_decode_loop``, ``beam_decode(use_fast=False)``)
+The full-buffer loop (``use_fast=False``, started by ``_full_start``)
 runs both fusion stacks over the whole caption buffer every token, with the
 memories' cross-attention keys/values projected once per call, and the
 heads at the frontier only (``decode_frontier``). It is the
@@ -38,6 +38,12 @@ so every rank runs the same steps. Randomness comes from a
 ``blocks.Draws``: one (B, V) uniform of its "sample" stream per sampled
 step, one (d_goal,) normal of its "noise" stream per exploring step.
 
+Spans (``spans``, a recorder ``name -> context manager``; the default
+``utils.profiling.no_spans`` records nothing): ``decode.setup`` around the
+encoder and the loop's start, and per token ``decode.step`` (the host's
+dispatch of the step) and ``decode.sync`` (the stop's wait for the device).
+They add no sync and change nothing computed.
+
 Tokens after a row's </s> are garbage, as in the reference; ``detokenize``
 cuts at the first </s>.
 """
@@ -51,6 +57,7 @@ from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD, SPECIALS
 from bmhrl_tpu_torch.models.blocks import Draws
 from bmhrl_tpu_torch.ops.masking import c_mask
 from bmhrl_tpu_torch.parallel import mesh as mesh_lib
+from bmhrl_tpu_torch.utils.profiling import no_spans
 
 NEG_INF = -1e9
 
@@ -105,7 +112,8 @@ def _start(B: int, L: int, start_idx: int, pad_idx: int, dev):
 
 def _fast_loop(caches, valid, step_fn, B: int, max_len: int, start_idx: int,
                end_idx: int, pad_idx: int, greedy: bool,
-               draws: Optional[Draws], sample_args, mesh=None):
+               draws: Optional[Draws], sample_args, mesh=None,
+               spans=no_spans):
     """The host loop over positions from a start (``fast_setup``'s or
     ``full_state``'s caches, validity buffer and step; the exported
     programs' in ``serve_export``): one step a token, the position a view
@@ -115,28 +123,22 @@ def _fast_loop(caches, valid, step_fn, B: int, max_len: int, start_idx: int,
     trg, probs, done = _start(B, max_len + 1, start_idx, pad_idx, dev)
     positions = torch.arange(max_len, device=dev)
     for t in range(max_len):
-        tok_t = trg[:, t]
-        valid[:, t] = tok_t != pad_idx
-        valid[:, 0] = True
-        logits_t, caches = step_fn(tok_t, positions[t], caches, valid)
-        nxt = _pick(logits_t, greedy, draws, sample_args)
-        trg[:, t + 1] = nxt
-        # the model's TRUE probability of the chosen token: the sampling
-        # filter only shapes the proposal
-        probs[:, t + 1] = logits_t.gather(1, nxt[:, None])[:, 0].exp()
-        done |= nxt == end_idx
-        if mesh_lib.all_done(done, mesh):
+        with spans("decode.step"):
+            tok_t = trg[:, t]
+            valid[:, t] = tok_t != pad_idx
+            valid[:, 0] = True
+            logits_t, caches = step_fn(tok_t, positions[t], caches, valid)
+            nxt = _pick(logits_t, greedy, draws, sample_args)
+            trg[:, t + 1] = nxt
+            # the model's TRUE probability of the chosen token: the
+            # sampling filter only shapes the proposal
+            probs[:, t + 1] = logits_t.gather(1, nxt[:, None])[:, 0].exp()
+            done |= nxt == end_idx
+        with spans("decode.sync"):
+            stop = mesh_lib.all_done(done, mesh)
+        if stop:
             break
     return trg, probs
-
-
-def _decode_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
-                      start_idx: int, end_idx: int, pad_idx: int,
-                      greedy: bool, draws: Optional[Draws], sample_args):
-    caches, valid, step_fn = model.fast_setup(Va, Av, masks_src, B,
-                                              max_len + 1)
-    return _fast_loop(caches, valid, step_fn, B, max_len, start_idx, end_idx,
-                      pad_idx, greedy, draws, sample_args, model.mesh)
 
 
 def full_state(model, Va, Av, masks_src, B: int, L: int,
@@ -211,20 +213,21 @@ def full_step(model, tok_t, t: torch.Tensor, caches, valid, inv,
                           exploration, draws, fed), caches
 
 
-def _decode_loop(model, Va, Av, masks_src, B: int, max_len: int,
-                 start_idx: int, end_idx: int, pad_idx: int, greedy: bool,
-                 draws: Optional[Draws], exploration: bool, sample_args):
-    """The full-buffer loop: the critic advanced one token per step, the
-    fusion stacks over the whole buffer, the heads at the frontier."""
-    caches, valid, inv = full_state(model, Va, Av, masks_src, B,
-                                    max_len + 1, 1, start_idx, pad_idx)
+def _full_start(model, Va, Av, masks_src, B: int, L: int, W: int,
+                start_idx: int, pad_idx: int, exploration: bool = False,
+                draws: Optional[Draws] = None):
+    """The full-buffer loop's start as ``fast_setup`` gives the fast
+    loop's: (caches0, valid0, step): the critic advanced one token per
+    step, the fusion stacks over the whole buffer, the heads at the
+    frontier."""
+    caches, valid, inv = full_state(model, Va, Av, masks_src, B, L, W,
+                                    start_idx, pad_idx)
 
     def step_fn(tok_t, t, caches, valid):
         return full_step(model, tok_t, t, caches, valid, inv, pad_idx,
                          exploration, draws)
 
-    return _fast_loop(caches, valid, step_fn, B, max_len, start_idx, end_idx,
-                      pad_idx, greedy, draws, sample_args, model.mesh)
+    return caches, valid, step_fn
 
 
 @torch.no_grad()
@@ -233,7 +236,7 @@ def decode(model, feats: Dict[str, torch.Tensor],
            end_idx: int, pad_idx: int, greedy: bool = True,
            draws: Optional[Draws] = None, exploration: bool = False,
            use_fast: Optional[bool] = None, temperature: float = 1.0,
-           top_k: int = 0, top_p: float = 0.0
+           top_k: int = 0, top_p: float = 0.0, spans=no_spans
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy or sampled decode. feats: {'rgb', 'flow', 'audio'} on the
     model's device; V = rgb + flow. ``greedy=False`` samples from the
@@ -242,21 +245,25 @@ def decode(model, feats: Dict[str, torch.Tensor],
     ``exploration`` adds the Manager's noise ("noise" stream) and always
     takes the full-buffer loop; ``use_fast`` (default: not exploration)
     picks the fast loop, which the DETR's pre-goal path does not have.
-    Returns (tokens (B, max_len+1) int64, the model's
-    TRUE probability of each chosen token (B, max_len+1) f32)."""
-    V = feats["rgb"] + feats["flow"]
-    A = feats["audio"]
-    Va, Av = model.encode(V, A, masks_src)
-    if draws is None and (exploration or not greedy):
-        draws = Draws(0, Va.device, model.mesh)
+    ``spans``: the module docstring's. Returns (tokens (B, max_len+1)
+    int64, the model's TRUE probability of each chosen token (B,
+    max_len+1) f32)."""
     if use_fast is None:
         use_fast = not exploration
-    args = (model, Va, Av, masks_src, V.shape[0], max_len, start_idx,
-            end_idx, pad_idx, greedy, draws)
-    sample_args = (temperature, top_k, top_p)
-    if use_fast and not exploration and model.has_fast_loop:
-        return _decode_loop_fast(*args, sample_args)
-    return _decode_loop(*args, exploration, sample_args)
+    with spans("decode.setup"):
+        V = feats["rgb"] + feats["flow"]
+        B, L = V.shape[0], max_len + 1
+        Va, Av = model.encode(V, feats["audio"], masks_src)
+        if draws is None and (exploration or not greedy):
+            draws = Draws(0, Va.device, model.mesh)
+        if use_fast and not exploration and model.has_fast_loop:
+            start = model.fast_setup(Va, Av, masks_src, B, L)
+        else:
+            start = _full_start(model, Va, Av, masks_src, B, L, 1, start_idx,
+                                pad_idx, exploration, draws)
+    return _fast_loop(*start, B, max_len, start_idx, end_idx, pad_idx,
+                      greedy, draws, (temperature, top_k, top_p), model.mesh,
+                      spans)
 
 
 def _beam_start(B: int, W: int, L: int, start_idx: int, pad_idx: int, dev):
@@ -302,7 +309,7 @@ def _beam_pick(trg, scores, lengths, B: int, W: int, length_penalty: float):
 
 def _beam_fast_loop(caches, valid, step_fn, B: int, W: int, max_len: int,
                     start_idx: int, end_idx: int, pad_idx: int,
-                    length_penalty: float, mesh=None):
+                    length_penalty: float, mesh=None, spans=no_spans):
     """Beam search over the incremental step from its start (B x W rows):
     every per-row cache (KV, critic state, goal buffer, boundary flag,
     validity) gathered by parent beam each step; memories at clip level,
@@ -312,46 +319,25 @@ def _beam_fast_loop(caches, valid, step_fn, B: int, W: int, max_len: int,
                                              pad_idx, dev)
     positions = torch.arange(max_len, device=dev)
     for t in range(max_len):
-        tok_t = trg[:, t]
-        valid[:, t] = tok_t != pad_idx
-        valid[:, 0] = True
-        logits_t, caches = step_fn(tok_t, positions[t], caches, valid)
-        parent, token, scores = _beam_step(logits_t, scores, done, B, W,
-                                           pad_idx)
-        prev_done = done[parent]
-        trg = trg[parent]
-        trg[:, t + 1] = token
-        valid = valid[parent]
-        caches = _gather(caches, parent)
-        lengths = lengths[parent] + (~prev_done).long()
-        done = prev_done | (token == end_idx)
-        if mesh_lib.all_done(done, mesh):
+        with spans("decode.step"):
+            tok_t = trg[:, t]
+            valid[:, t] = tok_t != pad_idx
+            valid[:, 0] = True
+            logits_t, caches = step_fn(tok_t, positions[t], caches, valid)
+            parent, token, scores = _beam_step(logits_t, scores, done, B, W,
+                                               pad_idx)
+            prev_done = done[parent]
+            trg = trg[parent]
+            trg[:, t + 1] = token
+            valid = valid[parent]
+            caches = _gather(caches, parent)
+            lengths = lengths[parent] + (~prev_done).long()
+            done = prev_done | (token == end_idx)
+        with spans("decode.sync"):
+            stop = mesh_lib.all_done(done, mesh)
+        if stop:
             break
     return _beam_pick(trg, scores, lengths, B, W, length_penalty)
-
-
-def _beam_loop_fast(model, Va, Av, masks_src, B: int, max_len: int,
-                    start_idx: int, end_idx: int, pad_idx: int, W: int,
-                    length_penalty: float):
-    caches, valid, step_fn = model.fast_setup(Va, Av, masks_src, B * W,
-                                              max_len + 1, beam_share=W)
-    return _beam_fast_loop(caches, valid, step_fn, B, W, max_len, start_idx,
-                           end_idx, pad_idx, length_penalty, model.mesh)
-
-
-def _beam_loop_full(model, Va, Av, masks_src, B: int, max_len: int,
-                    start_idx: int, end_idx: int, pad_idx: int, W: int,
-                    length_penalty: float):
-    """Beam search over the full-buffer step, memories repeated per beam;
-    the buffer, the labels and the critic state gathered by parent."""
-    caches, valid, inv = full_state(model, Va, Av, masks_src, B * W,
-                                    max_len + 1, W, start_idx, pad_idx)
-
-    def step_fn(tok_t, t, caches, valid):
-        return full_step(model, tok_t, t, caches, valid, inv, pad_idx)
-
-    return _beam_fast_loop(caches, valid, step_fn, B, W, max_len, start_idx,
-                           end_idx, pad_idx, length_penalty, model.mesh)
 
 
 @torch.no_grad()
@@ -359,20 +345,29 @@ def beam_decode(model, feats: Dict[str, torch.Tensor],
                 masks_src: Dict[str, torch.Tensor], max_len: int,
                 start_idx: int, end_idx: int, pad_idx: int,
                 beam_width: int = 4, length_penalty: float = 0.0,
-                use_fast: Optional[bool] = None
+                use_fast: Optional[bool] = None, spans=no_spans
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search in a clip-major (B x W) row layout: candidates are
     cumulative log-probs, parents gathered by top-k index, finished beams
     continue with a forced PAD at unchanged score, and the final pick
     divides by ((5+len)/6)^length_penalty. ``use_fast`` (default on): the
-    incremental loop; else the full-buffer loop. Returns (tokens of the
-    best beam (B, max_len+1) int64, its cumulative log-prob (B,) f32)."""
-    V = feats["rgb"] + feats["flow"]
-    Va, Av = model.encode(V, feats["audio"], masks_src)
-    fast = (use_fast is None or use_fast) and model.has_fast_loop
-    loop = _beam_loop_fast if fast else _beam_loop_full
-    return loop(model, Va, Av, masks_src, V.shape[0], max_len, start_idx,
-                end_idx, pad_idx, int(beam_width), length_penalty)
+    incremental loop; else the full-buffer loop (memories repeated per
+    beam; the buffer, the labels and the critic state gathered by parent).
+    ``spans``: the module docstring's. Returns (tokens of the best beam (B,
+    max_len+1) int64, its cumulative log-prob (B,) f32)."""
+    W = int(beam_width)
+    with spans("decode.setup"):
+        V = feats["rgb"] + feats["flow"]
+        B, L = V.shape[0], max_len + 1
+        Va, Av = model.encode(V, feats["audio"], masks_src)
+        if (use_fast is None or use_fast) and model.has_fast_loop:
+            start = model.fast_setup(Va, Av, masks_src, B * W, L,
+                                     beam_share=W)
+        else:
+            start = _full_start(model, Va, Av, masks_src, B * W, L, W,
+                                start_idx, pad_idx)
+    return _beam_fast_loop(*start, B, W, max_len, start_idx, end_idx,
+                           pad_idx, length_penalty, model.mesh, spans)
 
 
 def detokenize(tokens, itos) -> list:
