@@ -21,7 +21,9 @@ rank's real rows.
 thread: on CUDA it copies each array into pinned host memory and then to
 the card with ``non_blocking=True`` on a side stream, and records an
 event; the consumer makes its current stream wait on that event before it
-hands the batch out. With depth >= 2 the copy of batch t+1 overlaps the
+hands the batch out. A tensor that the caching host allocator pinned (the
+serving reader's) is copied from as it is: the allocator keeps its block
+until that copy is done. With depth >= 2 the copy of batch t+1 overlaps the
 work of batch t. Its ``spans`` (a recorder ``name -> context manager``,
 ``utils.profiling``) time each item's staging, on the worker thread, as
 ``serve.stage``.
@@ -250,7 +252,9 @@ class Prefetcher:
         for k in self.DEVICE_KEYS:
             if k not in item:
                 continue
-            host = torch.from_numpy(np.ascontiguousarray(item[k]))
+            host = item[k]
+            if not isinstance(host, torch.Tensor):
+                host = torch.from_numpy(np.ascontiguousarray(host))
             if side is not None:
                 with torch.cuda.stream(side):
                     item[k] = host.pin_memory().to(self.device,

@@ -4,9 +4,9 @@ bmhrl_tpu/native.py over the repo's ``native/meteor_align.cpp`` and
 sampled captions in C++.
 
 The library is built with ``g++`` at first use into
-``bmhrl_tpu_torch/_build/`` (named by a hash of the sources and flags, so
-an edited source rebuilds); ``available()`` is False where no compiler or
-library is at hand, and the reward scorers then take their Python path.
+``bmhrl_tpu_torch/_build/`` (``HostLibrary``, which the feature reader of
+``data.feature_reader`` shares); ``available()`` is False where no compiler
+or library is at hand, and the reward scorers then take their Python path.
 Words are interned on the Python side; their stems come from this
 package's Porter stemmer (``eval.porter``), so the C++ aligner scores as
 the Python METEOR of ``eval.meteor`` does.
@@ -32,48 +32,55 @@ SOURCES = ("meteor_align.cpp", "cider_prefix.cpp")
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 
-_lock = threading.Lock()
-_lib = None
-_tried = False
 
+class HostLibrary:
+    """A host C++ library built with ``g++`` at first use into
+    ``BUILD_DIR``, named by a hash of its sources and flags (an edited
+    source rebuilds), and bound with ``ctypes.CDLL``, whose calls release
+    the interpreter lock. ``declare(lib)`` sets each function's argument
+    and result types."""
 
-def _target() -> Path:
-    """The library, named by a hash of the sources and the flags."""
-    h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((NATIVE_DIR / name).read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libreward-{h.hexdigest()[:12]}.so"
+    def __init__(self, name: str, sources: Sequence[Path],
+                 flags: Sequence[str], declare):
+        self.name, self.sources = name, tuple(sources)
+        self.flags, self.declare = tuple(flags), declare
+        self._lock = threading.Lock()
+        self._lib = None
+        self._tried = False
 
+    def target(self) -> Path:
+        h = hashlib.sha256()
+        for src in self.sources:
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        h.update(" ".join(self.flags).encode())
+        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:12]}.so"
 
-def _build(out: Path) -> None:
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o",
-                    str(tmp), *(str(NATIVE_DIR / n) for n in SOURCES)],
-                   check=True, capture_output=True, timeout=300)
-    os.replace(tmp, out)
+    def _build(self, out: Path) -> None:
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        subprocess.run([os.environ.get("CXX", "g++"), *self.flags, "-o",
+                        str(tmp), *map(str, self.sources)],
+                       check=True, capture_output=True, timeout=300)
+        os.replace(tmp, out)
 
-
-def _load():
-    """The loaded library, built first if missing; None where it cannot be
-    built (no compiler) or loaded."""
-    global _lib, _tried
-    with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        try:
-            out = _target()
-            if not out.exists():
-                _build(out)
-            lib = ctypes.CDLL(str(out))
-        except (OSError, subprocess.SubprocessError):
-            return None
-        _declare(lib)
-        _lib = lib
-        return _lib
+    def load(self):
+        """The loaded library, built first if missing; None where it
+        cannot be built (no compiler) or loaded."""
+        with self._lock:
+            if self._lib is not None or self._tried:
+                return self._lib
+            self._tried = True
+            try:
+                out = self.target()
+                if not out.exists():
+                    self._build(out)
+                lib = ctypes.CDLL(str(out))
+            except (OSError, subprocess.SubprocessError):
+                return None
+            self.declare(lib)
+            self._lib = lib
+            return lib
 
 
 def _declare(lib) -> None:
@@ -97,6 +104,11 @@ def _declare(lib) -> None:
         ctypes.c_void_p, u16p, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_uint16, u16p, i64p, f, ctypes.POINTER(f)]
     lib.cider_prefix_rewards.restype = None
+
+
+_REWARD = HostLibrary("libreward", [NATIVE_DIR / n for n in SOURCES],
+                      CXX_FLAGS, _declare)
+_load = _REWARD.load
 
 
 def available() -> bool:

@@ -320,15 +320,18 @@ def resolve_data(mesh_shape, device="cuda") -> int:
 
 
 def build_once(mesh: Mesh) -> None:
-    """Build the kernels (CUDA ranks) and the native reward library on
-    rank 0 while the other ranks wait; every rank then loads the built
-    libraries. A failed build raises on every rank."""
+    """Build the kernels (CUDA ranks), the native reward library and the
+    feature reader on rank 0 while the other ranks wait; every rank then
+    loads the built libraries. A failed build raises on every rank."""
     err = ""
     if mesh.rank == 0:
         try:
             from bmhrl_tpu_torch import native
+            from bmhrl_tpu_torch.data import feature_reader
 
-            native.available()  # no compiler: the Python scorer, everywhere
+            # no compiler: the Python scorer and loader, everywhere
+            native.available()
+            feature_reader.available()
             if mesh.device.type == "cuda":
                 from bmhrl_tpu_torch.ops import _cuda
 

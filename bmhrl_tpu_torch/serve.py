@@ -7,8 +7,17 @@ sampled or beam-search captions.
   power of two. The padding rows match the JAX server's: they reach valid
   rows through the Manager's cross-row goal expansion
   (``ops.segments.frontier_goal``), so other padding would change captions.
-- Feature loading runs in a thread pool; the prefetcher stages batch t+1 on
-  the device while batch t decodes.
+- A batch's features are read by the C++ reader of
+  ``data.feature_reader`` in one call that releases the interpreter lock
+  (the decode's dispatching thread runs on beside it): it parses the
+  ``.npy`` headers, reads only the cropped rows and pads them straight into
+  the batch's tensors, pinned on CUDA, on ``io_threads`` native threads.
+  The Python path (``_load_batch``: ``np.load`` on a pool of ``io_threads``
+  threads, then ``pad_stack``) loads a batch where the library cannot be
+  built or a file is not 2-D little-endian float32 in C order; both give
+  the same bytes. ``ServeStats.native_batches`` counts the reader's
+  batches. The prefetcher stages batch t+1 on the device while batch t
+  decodes.
 - Each batch runs ``train.decode.decode`` (greedy, or sampled with
   temperature, top-k and nucleus shaping from one ``blocks.Draws`` per
   server that advances batch by batch) or ``train.decode.beam_decode``:
@@ -56,6 +65,7 @@ import numpy as np
 
 from bmhrl_tpu_torch import resolve_device
 from bmhrl_tpu_torch.config import Config
+from bmhrl_tpu_torch.data import feature_reader
 from bmhrl_tpu_torch.data import features as F
 from bmhrl_tpu_torch.data.dataset import Prefetcher
 from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD
@@ -87,6 +97,7 @@ class ServeStats:
     batch_latency_s: List[float] = field(default_factory=list)
     padded_rows: int = 0
     padded_frac: float = 0.0
+    native_batches: int = 0  # read by the C++ reader; not in summary()
 
     def summary(self) -> Dict:
         """The JAX server's summary: same keys, same rounding."""
@@ -237,6 +248,24 @@ def _load_batch(reqs: Sequence[ClipRequest], idxs: List[int], vb: int,
     }
 
 
+def _read_batch(reqs: Sequence[ClipRequest], idxs: List[int], vb: int,
+                ab: int, cfg: Config, pad_to: int, rows: Optional[slice],
+                threads: int, pin: bool) -> Optional[Dict]:
+    """``_load_batch``'s batch, the same bytes, read by the C++ reader
+    (``data.feature_reader``) on ``threads`` threads into float32 tensors,
+    pinned with ``pin``; None where the Python path has to load it."""
+    rows = rows or slice(0, pad_to)
+    feats = feature_reader.read_batch(
+        [(r.video_dir or cfg.video_features_path,
+          r.audio_dir or cfg.audio_features_path,
+          r.video_id, r.start, r.end, r.duration)
+         for r in (reqs[i] for i in idxs[rows])],
+        rows.stop - rows.start, vb, ab, cfg.d_vid, cfg.d_aud, threads, pin)
+    if feats is None:
+        return None
+    return {**feats, "n_valid": len(idxs), "idxs": idxs}
+
+
 class CaptionServer:
     """Holds a loaded captioner (``BMHrlAgent``, a ``UnimodalAgent`` of
     the AHRL/VHRL family or a ``DetrCaption``) and captions request lists on
@@ -318,6 +347,8 @@ class CaptionServer:
         stats = ServeStats()
         shapes_seen = set()
         sentences: List[Optional[str]] = [None] * len(reqs)
+        # pinned host tensors: the staging copy is then the one H2D copy
+        pin = self.device.type == "cuda"
 
         with ThreadPoolExecutor(max_workers=io_threads) as pool:
             def batch_iter() -> Iterator[Dict]:
@@ -330,8 +361,13 @@ class CaptionServer:
                     rows = (None if self.mesh is None
                             else self.mesh.rows(pad_to))
                     with spans("serve.load"):
-                        batch = _load_batch(reqs, idxs, vb, ab, cfg, pad_to,
-                                            pool, rows)
+                        batch = _read_batch(reqs, idxs, vb, ab, cfg, pad_to,
+                                            rows, io_threads, pin)
+                        if batch is None:
+                            batch = _load_batch(reqs, idxs, vb, ab, cfg,
+                                                pad_to, pool, rows)
+                        else:
+                            stats.native_batches += 1
                     yield batch
 
             t0 = time.perf_counter()
