@@ -21,7 +21,11 @@ sampled or beam-search captions.
 - Each batch runs ``train.decode.decode`` (greedy, or sampled with
   temperature, top-k and nucleus shaping from one ``blocks.Draws`` per
   server that advances batch by batch) or ``train.decode.beam_decode``:
-  the encoder once per clip and O(1) positions per generated token.
+  the encoder once per clip and O(1) positions per generated token. On
+  CUDA without ranks the greedy token is a CUDA graph of the server's
+  ``TokenGraphs``, captured at the first batch of its shapes, kept, and
+  replayed every token (``ServeStats``' ``graph_captures`` and
+  ``graph_replays``, not in ``summary()``).
 
 A server of exported programs (``serve_export.ExportedCaptionServer``)
 inherits the scheduling and IO. Results come back in the ANet submission
@@ -30,12 +34,13 @@ format.
 Spans: a server's ``spans`` (a recorder ``name -> context manager``, such
 as ``utils.profiling.StepTimer().phase``; by default
 ``utils.profiling.no_spans``, which records nothing) goes to the decode
-loops (``decode.setup``, ``decode.step``, ``decode.sync``) and the
-``Prefetcher`` (``serve.stage``, on its thread), and ``caption`` opens
-``serve.load`` around each batch's loading (on the ``Prefetcher``'s
-thread), ``serve.batch_wait`` around the dispatching thread's wait for it
-and ``serve.fetch`` around the copy of its tokens to the host and their
-words. A span adds no sync and changes nothing computed.
+loops (``decode.setup``, ``decode.capture``, ``decode.step``,
+``decode.sync``) and the ``Prefetcher`` (``serve.stage``, on its thread),
+and ``caption`` opens ``serve.load`` around each batch's loading (on the
+``Prefetcher``'s thread), ``serve.batch_wait`` around the dispatching
+thread's wait for it and ``serve.fetch`` around the copy of its tokens to
+the host and their words. A span adds no sync and changes nothing
+computed.
 
 Data parallel (``mesh``, ``parallel.mesh``; every rank runs the server on
 the same requests): a batch of ``inference_batch_size`` (the global batch)
@@ -72,7 +77,8 @@ from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD
 from bmhrl_tpu_torch.models.blocks import Draws
 from bmhrl_tpu_torch.ops.masking import make_masks
 from bmhrl_tpu_torch.parallel import mesh as mesh_lib
-from bmhrl_tpu_torch.train.decode import beam_decode, decode, detokenize
+from bmhrl_tpu_torch.train.decode import (TokenGraphs, beam_decode, decode,
+                                          detokenize)
 from bmhrl_tpu_torch.utils.profiling import no_spans
 
 
@@ -98,6 +104,8 @@ class ServeStats:
     padded_rows: int = 0
     padded_frac: float = 0.0
     native_batches: int = 0  # read by the C++ reader; not in summary()
+    graph_captures: int = 0  # greedy token graphs captured; not in summary()
+    graph_replays: int = 0  # their replays, one a token; not in summary()
 
     def summary(self) -> Dict:
         """The JAX server's summary: same keys, same rounding."""
@@ -315,6 +323,9 @@ class CaptionServer:
         # shapes: tails pad to the full batch size
         self._fixed_batch = False
         self.spans = no_spans
+        # the greedy token's CUDA graphs, kept per batch shape for the
+        # server's life
+        self.graphs = TokenGraphs()
 
     def _mesh_pad(self, b: int) -> int:
         """b rounded up to a multiple of the ranks (the JAX server's
@@ -335,7 +346,7 @@ class CaptionServer:
             return decode(*args, greedy=False, draws=self._draws,
                           temperature=self.temperature, top_k=self.top_k,
                           top_p=self.top_p, spans=self.spans)[0]
-        return decode(*args, spans=self.spans)[0]
+        return decode(*args, spans=self.spans, graphs=self.graphs)[0]
 
     def caption(self, reqs: Sequence[ClipRequest],
                 batch_size: Optional[int] = None,
@@ -345,6 +356,7 @@ class CaptionServer:
         bs = batch_size or max(cfg.inference_batch_size, 1)
         plan = plan_batches(reqs, cfg, bs)
         stats = ServeStats()
+        graphs0 = (self.graphs.captures, self.graphs.replays)
         shapes_seen = set()
         sentences: List[Optional[str]] = [None] * len(reqs)
         # pinned host tensors: the staging copy is then the one H2D copy
@@ -391,6 +403,8 @@ class CaptionServer:
                 shapes_seen.add((tokens.shape[0], feats["rgb"].shape[1],
                                  feats["audio"].shape[1]))
             stats.wall_s = time.perf_counter() - t0
+        stats.graph_captures = self.graphs.captures - graphs0[0]
+        stats.graph_replays = self.graphs.replays - graphs0[1]
         stats.compiles = len(shapes_seen)
         stats.padded_frac = stats.padded_rows / max(
             stats.clips + stats.padded_rows, 1)

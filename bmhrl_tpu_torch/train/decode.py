@@ -38,10 +38,25 @@ so every rank runs the same steps. Randomness comes from a
 ``blocks.Draws``: one (B, V) uniform of its "sample" stream per sampled
 step, one (d_goal,) normal of its "noise" stream per exploring step.
 
+Greedy decode on the fast loop runs ``greedy_token``: one token as a
+function of tensors alone, every tensor at a fixed address for the decode
+(the position a device counter the token advances, the buffers read and
+written at it by index ops, the state the step returns new copied back
+into its own buffers). On the CPU, and with ranks (a world above 1: the
+step's exchange of flags is a collective), it is called once a token. On
+CUDA alone, given a ``TokenGraphs`` (the server keeps one), it is a CUDA
+graph, captured at the first decode of its shapes and kept with its
+buffers, into which each later decode of those shapes copies its start,
+and replayed every token: a token costs one graph launch instead of the
+step's ~400 kernel launches from Python; the stop's sync stays one a
+token. The sampled and beam loops, the full-buffer loop and exported
+programs run ``_fast_loop`` and ``_beam_fast_loop``.
+
 Spans (``spans``, a recorder ``name -> context manager``; the default
 ``utils.profiling.no_spans`` records nothing): ``decode.setup`` around the
-encoder and the loop's start, and per token ``decode.step`` (the host's
-dispatch of the step) and ``decode.sync`` (the stop's wait for the device).
+encoder and the loop's start, ``decode.capture`` around a graph's capture,
+and per token ``decode.step`` (the host's dispatch of the step, or its
+graph's replay) and ``decode.sync`` (the stop's wait for the device).
 They add no sync and change nothing computed.
 
 Tokens after a row's </s> are garbage, as in the reference; ``detokenize``
@@ -49,12 +64,14 @@ cuts at the first </s>.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD, SPECIALS
 from bmhrl_tpu_torch.models.blocks import Draws
+from bmhrl_tpu_torch.ops import _cuda
 from bmhrl_tpu_torch.ops.masking import c_mask
 from bmhrl_tpu_torch.parallel import mesh as mesh_lib
 from bmhrl_tpu_torch.utils.profiling import no_spans
@@ -92,13 +109,31 @@ def _pick(logits_t, greedy: bool, draws: Optional[Draws], sample_args):
     return draws.categorical(sample_filter(logits_t, *sample_args))
 
 
+def _nest_map(fn, x):
+    """``fn`` of every tensor of a nest of dicts, lists and (named) tuples,
+    in a nest of the same form; other leaves as they are."""
+    if isinstance(x, dict):
+        return {k: _nest_map(fn, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        items = [_nest_map(fn, v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    return fn(x) if isinstance(x, torch.Tensor) else x
+
+
+def _leaves(x):
+    """The leaves of a nest of dicts, lists and tuples, in order."""
+    if isinstance(x, dict):
+        x = x.values()
+    elif not isinstance(x, (list, tuple)):
+        yield x
+        return
+    for v in x:
+        yield from _leaves(v)
+
+
 def _gather(x, idx):
     """Rows ``idx`` of every tensor of a nest of dicts, lists and tuples."""
-    if isinstance(x, dict):
-        return {k: _gather(v, idx) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return type(x)(_gather(v, idx) for v in x)
-    return x.index_select(0, idx)
+    return _nest_map(lambda t: t.index_select(0, idx), x)
 
 
 def _start(B: int, L: int, start_idx: int, pad_idx: int, dev):
@@ -139,6 +174,238 @@ def _fast_loop(caches, valid, step_fn, B: int, max_len: int, start_idx: int,
         if stop:
             break
     return trg, probs
+
+
+def _own_buffers(x):
+    """``x``'s nest with every tensor its own buffer: a tensor whose storage
+    an earlier one holds is cloned (the critic's ``init_state`` hands one
+    zero tensor to every cell)."""
+    seen = set()
+
+    def own(t):
+        ptr = t.untyped_storage().data_ptr()
+        if ptr in seen:
+            return t.clone()
+        seen.add(ptr)
+        return t
+
+    return _nest_map(own, x)
+
+
+def _copy_back(dst, src):
+    """Copy each tensor of the nest ``src`` that is not the tensor at its
+    place in ``dst`` into that one (a dict's keys are ``src``'s)."""
+    if isinstance(src, dict):
+        for k in src:
+            _copy_back(dst[k], src[k])
+    elif isinstance(src, (list, tuple)):
+        for d, s in zip(dst, src):
+            _copy_back(d, s)
+    elif isinstance(src, torch.Tensor) and src is not dst:
+        dst.copy_(src)
+
+
+def _signature(x) -> tuple:
+    """The shapes, dtypes, strides and devices of a nest's tensors and its
+    other leaves, in order: what a graph's buffers fix."""
+    return tuple((tuple(v.shape), v.dtype, v.stride(), v.device)
+                 if isinstance(v, torch.Tensor) else v for v in _leaves(x))
+
+
+def greedy_state(caches, valid, inv, B: int, max_len: int, start_idx: int,
+                 pad_idx: int) -> Dict:
+    """The state of ``greedy_token`` from a fast loop's start (a model's
+    ``fast_state``): the position (a 0-d int64 counter at 0), the token
+    buffer, the probabilities, the done flags, ``valid`` (<s> at 0 valid),
+    the step's caches, each tensor a buffer of its own, and its
+    loop-invariant inputs ``inv``."""
+    trg, probs, done = _start(B, max_len + 1, start_idx, pad_idx,
+                              valid.device)
+    valid[:, 0] = True
+    return {"pos": torch.zeros((), dtype=torch.int64, device=valid.device),
+            "trg": trg, "probs": probs, "done": done, "valid": valid,
+            "caches": _own_buffers(caches), "inv": inv}
+
+
+def greedy_token(state: Dict, step, end_idx: int, pad_idx: int) -> None:
+    """One greedy token of the fast loop, IN PLACE on ``greedy_state``'s
+    tensors and reading nothing on the host, so that a CUDA graph can
+    replay it: ``step`` (a model's ``fast_step``) at the counter's position
+    t, state it returns new copied back into its buffers, the argmax
+    written at t + 1 with its validity and probability, the done flags,
+    the counter advanced. The same tokens and probabilities as
+    ``_fast_loop``'s greedy step, which writes a token's validity before
+    its step instead."""
+    pos, trg = state["pos"], state["trg"]
+    at = pos.reshape(1)
+    tok_t = trg.index_select(1, at)[:, 0]
+    logits_t, caches = step(tok_t, pos, state["caches"], state["valid"],
+                            state["inv"])
+    _copy_back(state["caches"], caches)
+    nxt = _pick(logits_t, True, None, None)[:, None]
+    at = at + 1
+    trg.index_copy_(1, at, nxt)
+    state["valid"].index_copy_(1, at, nxt != pad_idx)
+    state["probs"].index_copy_(1, at, logits_t.gather(1, nxt).exp())
+    state["done"].bitwise_or_(nxt[:, 0] == end_idx)
+    pos.add_(1)
+
+
+class TokenGraphs:
+    """CUDA graphs of ``greedy_token`` for one caller (a server keeps one),
+    on one capture stream and one memory pool for its life. A graph is
+    captured for the first decode of a state's shapes and kept; a later
+    decode of the same shapes copies its state into the graph's buffers
+    and replays it. Kept graphs share a buffer wherever their states hold
+    a tensor of the same place and signature: the derived weights once
+    for all of them, and at one batch size the caches and token buffers,
+    so what a new bucket adds is mostly its memories. The graphs used
+    least recently are dropped while the kept buffers pass ``MAX_BYTES``
+    (None: an eighth of the device's memory); the graph just captured
+    stays. A replay adds its token's kernel launches to
+    ``ops._cuda.LAUNCHES``, which its capture does not. ``captures`` and
+    ``replays`` count them."""
+
+    MAX_BYTES: Optional[int] = None
+
+    def __init__(self):
+        self.stream = None
+        self.pool = None
+        self._graphs: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._buffers: Dict[tuple, torch.Tensor] = {}
+        self.captures = 0
+        self.replays = 0
+
+    def bind(self, state: Dict, token_on, key, spans=no_spans):
+        """(the state a graph works on, a function replaying its token) for
+        a decode starting from ``state``: the graph kept for ``key`` and
+        the state's shapes with ``state`` copied into its buffers, else one
+        captured now, in the span ``decode.capture``, of ``token_on`` (the
+        token, working on the state given, in place) on the shared
+        buffers with ``state`` copied in."""
+        key = (key, _signature(state))
+        kept = self._graphs.get(key)
+        if kept is not None:
+            self._graphs.move_to_end(key)
+            _copy_back(kept[0], state)
+            return kept
+        with spans("decode.capture"):
+            state = self._share(state, ())
+            kept = (state, self._capture(token_on(state), state))
+        self._graphs[key] = kept
+        budget = self.MAX_BYTES
+        if budget is None:
+            budget = torch.cuda.get_device_properties(
+                state["trg"].device).total_memory // 8
+        while len(self._graphs) > 1 and self.nbytes() > budget:
+            self._graphs.popitem(last=False)
+            held = {id(t) for st, _ in self._graphs.values()
+                    for t in _leaves(st)}
+            self._buffers = {k: t for k, t in self._buffers.items()
+                             if id(t) in held}
+        return kept
+
+    def nbytes(self) -> int:
+        """The bytes of the kept graphs' buffers."""
+        return sum(t.nbytes for t in self._buffers.values())
+
+    def _share(self, x, place: tuple):
+        """``x``'s nest with each tensor the shared buffer of its place and
+        signature (a copy of it where there is none yet), holding its
+        values."""
+        if isinstance(x, dict):
+            return {k: self._share(v, place + (k,)) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            items = [self._share(v, place + (i,)) for i, v in enumerate(x)]
+            return type(x)(*items) if hasattr(x, "_fields") \
+                else type(x)(items)
+        if not isinstance(x, torch.Tensor):
+            return x
+        at = (place, tuple(x.shape), x.dtype, x.stride(), x.device)
+        buf = self._buffers.get(at)
+        if buf is None:
+            buf = self._buffers[at] = x.clone()
+        else:
+            buf.copy_(x)
+        return buf
+
+    def _capture(self, token, state: Dict):
+        """Capture ``token()`` on the capture stream; return a function
+        that replays it on the current stream. The first capture runs the
+        token once eagerly on that stream beforehand (cuBLAS's handle and
+        workspace for the stream, every kernel's module), then puts
+        ``state`` back. The launches counted while capturing (none
+        happened) are taken back and counted at each replay."""
+        current = torch.cuda.current_stream()
+        first = self.stream is None
+        if first:
+            self.stream = torch.cuda.Stream(current.device)
+            self.pool = torch.cuda.graph_pool_handle()
+        self.stream.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.stream):
+            if first:
+                saved = _nest_map(torch.clone, {
+                    k: v for k, v in state.items() if k != "inv"})
+                token()
+                _copy_back(state, saved)
+            before = dict(_cuda.LAUNCHES)
+            # thread-local: the loader's thread keeps copying meanwhile
+            graph.capture_begin(self.pool, capture_error_mode="thread_local")
+            try:
+                token()
+            finally:
+                graph.capture_end()
+                launches = {k: n - before[k]
+                            for k, n in _cuda.LAUNCHES.items()
+                            if n != before[k]}
+                _cuda.LAUNCHES.update(before)
+        current.wait_stream(self.stream)
+        self.captures += 1
+
+        def replay():
+            graph.replay()
+            for k, n in launches.items():
+                _cuda.LAUNCHES[k] += n
+            self.replays += 1
+
+        return replay
+
+
+def _greedy_start(model, Va, Av, masks_src, B: int, max_len: int,
+                  start_idx: int, end_idx: int, pad_idx: int,
+                  graphs: Optional[TokenGraphs], spans):
+    """The greedy fast loop's state and its token: ``greedy_token`` on a
+    new ``greedy_state``, or, where ``graphs`` is given and the state is on
+    CUDA, the replay of a graph of it (``TokenGraphs.bind``); ``graphs``
+    must be None with ranks."""
+    state = greedy_state(*model.fast_state(Va, Av, masks_src, B,
+                                           max_len + 1),
+                         B, max_len, start_idx, pad_idx)
+    step = model.fast_step
+
+    def token_on(state):
+        return lambda: greedy_token(state, step, end_idx, pad_idx)
+
+    if graphs is None or not state["trg"].is_cuda:
+        return state, token_on(state)
+    return graphs.bind(state, token_on, (step, end_idx, pad_idx), spans)
+
+
+def _greedy_loop(state: Dict, token, max_len: int, mesh=None,
+                 spans=no_spans):
+    """The greedy fast loop: ``token()`` a token (``_greedy_start``'s) and
+    one host sync a token (``mesh``: the stop over every rank's rows).
+    Returns copies of the
+    tokens and probabilities: a graph's buffers serve its next decode."""
+    for _ in range(max_len):
+        with spans("decode.step"):
+            token()
+        with spans("decode.sync"):
+            stop = mesh_lib.all_done(state["done"], mesh)
+        if stop:
+            break
+    return state["trg"].clone(), state["probs"].clone()
 
 
 def full_state(model, Va, Av, masks_src, B: int, L: int,
@@ -236,7 +503,8 @@ def decode(model, feats: Dict[str, torch.Tensor],
            end_idx: int, pad_idx: int, greedy: bool = True,
            draws: Optional[Draws] = None, exploration: bool = False,
            use_fast: Optional[bool] = None, temperature: float = 1.0,
-           top_k: int = 0, top_p: float = 0.0, spans=no_spans
+           top_k: int = 0, top_p: float = 0.0, spans=no_spans,
+           graphs: Optional[TokenGraphs] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy or sampled decode. feats: {'rgb', 'flow', 'audio'} on the
     model's device; V = rgb + flow. ``greedy=False`` samples from the
@@ -245,6 +513,8 @@ def decode(model, feats: Dict[str, torch.Tensor],
     ``exploration`` adds the Manager's noise ("noise" stream) and always
     takes the full-buffer loop; ``use_fast`` (default: not exploration)
     picks the fast loop, which the DETR's pre-goal path does not have.
+    Greedy on the fast loop runs ``greedy_token``, on CUDA without ranks
+    replayed from a graph of ``graphs`` (None: called once a token).
     ``spans``: the module docstring's. Returns (tokens (B, max_len+1)
     int64, the model's TRUE probability of each chosen token (B,
     max_len+1) f32)."""
@@ -256,11 +526,20 @@ def decode(model, feats: Dict[str, torch.Tensor],
         Va, Av = model.encode(V, feats["audio"], masks_src)
         if draws is None and (exploration or not greedy):
             draws = Draws(0, Va.device, model.mesh)
-        if use_fast and not exploration and model.has_fast_loop:
+        fast = use_fast and not exploration and model.has_fast_loop
+        if fast and greedy:
+            if model.mesh is not None and model.mesh.world > 1:
+                graphs = None
+            state, token = _greedy_start(model, Va, Av, masks_src, B,
+                                         max_len, start_idx, end_idx,
+                                         pad_idx, graphs, spans)
+        elif fast:
             start = model.fast_setup(Va, Av, masks_src, B, L)
         else:
             start = _full_start(model, Va, Av, masks_src, B, L, 1, start_idx,
                                 pad_idx, exploration, draws)
+    if fast and greedy:
+        return _greedy_loop(state, token, max_len, model.mesh, spans)
     return _fast_loop(*start, B, max_len, start_idx, end_idx, pad_idx,
                       greedy, draws, (temperature, top_k, top_p), model.mesh,
                       spans)

@@ -66,7 +66,19 @@ Phases, each of which raises at its first failure:
    counted) agrees with its plain-version run on >= 99% of tokens;
    clips/s of beam W=4 (B=64), sampled (B=256) and full-buffer greedy
    (B=32) decode;
-6. entry_points: the serving entry points at the flagship's width. A
+6. graph: the greedy token as one CUDA graph replay a token
+   (``train.decode.TokenGraphs``): the flagship at B=256 in the (32, 64)
+   bucket, at a tail of 32 and at B=256 again on other clips (the kept
+   graph), and the DETR at B=256, each bit-equal in tokens and
+   probabilities to the eager loops (``_fast_loop`` and the graph's body
+   called once a token), with one capture for new shapes, none for kept
+   ones, one replay a token step, and the eager token's kernel launches
+   counted at each replay; a capture's, a kept graph's new start's, a
+   replayed token's and an eager token's milliseconds on the host clock;
+   the roofline shares of ``folded_attend`` and the critic's cells in
+   replays, each replayed device operation tied to the op of the eager
+   token's at its place;
+7. entry_points: the serving entry points at the flagship's width. A
    train TSV of 10168 words (the CLIs build the flagship's vocabulary of
    10172), a reference .pt written by ``utils.checkpoint.
    export_torch_bmhrl`` from the seed-0 weights and a 64-request proposals
@@ -84,7 +96,7 @@ Phases, each of which raises at its first failure:
    sampled, beam W=2, full-buffer); greedy clips/s at B=256 of AHRL, VHRL
    and the bimodal flagship; an AHRL warmstart step at B=16 (ms/step,
    loss falling over 3 steps);
-7. train: the training path through ``train.steps.StepFactory``. Flash
+8. train: the training path through ``train.steps.StepFactory``. Flash
    attention's gradient (the autograd Function: kernel forward, the JAX
    package's recompute as backward) against autograd through the plain
    version at the training shapes, bf16 (tensor-core route) and f32
@@ -106,10 +118,10 @@ Phases, each of which raises at its first failure:
    forward/backward/optimizer split from CUDA events, and the flash
    forward kernel, backward recompute and
    ``scaled_dot_product_attention`` forward + backward at the B=16 sites;
-8. train_loop: ``train_rl_cap`` at the flagship's width on a written
+9. train_loop: ``train_rl_cap`` at the flagship's width on a written
    corpus (the timed runs, the first the main path), its gates and the
    synthetic learning proof;
-9. detr: the DETR captioner. A small f32 DETR (default and pre-goal)
+10. detr: the DETR captioner. A small f32 DETR (default and pre-goal)
    decoded on card and CPU with the same draws in every mode (identical
    tokens) and one ``detr_update`` on each (losses and parameters within
    1e-5); the flagship DETR (``DetrCaption.build``: vocabulary 10172,
@@ -126,10 +138,10 @@ Phases, each of which raises at its first failure:
    ms/step, the device's idle share); ``run_training --mode DETR`` for 2
    epochs of 8 steps (its launches counted) and ``serve_captions --mode
    DETR --checkpoint_dir`` on its checkpoint, equal to the direct server;
-10. leftovers: ``train_critic`` on the written corpus (BCE falls; its
+11. leftovers: ``train_critic`` on the written corpus (BCE falls; its
    ``critic.cp`` installed gives the trained module's logits through the
    cell kernels, 1e-4) and one ``run_training --mode verbose`` pass;
-11. proposals: the event-proposal generator. A small f32 model (2 heads
+12. proposals: the event-proposal generator. A small f32 model (2 heads
    of d=128: the 3xTF32 flash route; Sv 300, Sa 800, B 4, one video
    without features) on card and CPU with the same weights and draws:
    predictions (segments relative to their scale) and losses within 1e-5,
@@ -150,7 +162,7 @@ Phases, each of which raises at its first failure:
    slice's main path (launches zeroed just before and read just after:
    every tensor-core kernel and both cells, no 3xTF32 route), equal to
    the direct predict + postprocess + ``CaptionServer.caption``;
-12. export: AOT serving bundles (``serve_export``). The four kernel
+13. export: AOT serving bundles (``serve_export``). The four kernel
    entry points, ``torch.library`` custom ops, pass
    ``torch.library.opcheck`` with CUDA tensors at serving shapes; the
    flagship (seed-0 weights) exported greedy and with beam W=4 for the 64
@@ -165,7 +177,7 @@ Phases, each of which raises at its first failure:
    program, the bytes of ``params.npz`` and of the programs, load seconds,
    greedy clips/s of bundle and live server taking turns (median of 3)
    and their ratio (the head program and the dynamic rows are in it);
-13. mesh: data parallelism (``parallel.mesh``) on the one card. A world
+14. mesh: data parallelism (``parallel.mesh``) on the one card. A world
    of 1 over NCCL through the production path: ``train_rl_cap`` (B=16, a
    warmstart and a worker epoch of 4 steps) and the flagship's greedy
    ``CaptionServer`` on the 64 requests at B=32, each with and without
@@ -184,7 +196,7 @@ Phases, each of which raises at its first failure:
    shapes (identical captions, launches on rank 0 and all-reduces;
    program calls a token, each rank's load seconds, the rig's clips/s),
    and a small f32 bundle at one row a rank against one process;
-14. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
+15. profile: one B=256 greedy decode, one beam W=4 decode of 64 clips and
    one B=16 warmstart step under ``torch.profiler`` (last: a profiled
    process launches more slowly).
 
@@ -1949,6 +1961,283 @@ def phase_entry_points(K, model):
     del f256, m256
     torch.cuda.empty_cache()
     unimodal_warmstart(K, Config(mode="AHRL"))
+
+
+def graphed_vs_eager(model, feats, masks, max_len, graphs, what,
+                     captures_wanted=1):
+    """One greedy decode replayed from a CUDA graph (``graphs``) against
+    the eager loops on the same inputs: the old host loop
+    (``_fast_loop``) and the graph's body called once a token; tokens and
+    probabilities bit-equal, ``captures_wanted`` captures (1 for new
+    shapes, 0 where ``graphs`` keeps a graph of them), one replay a token
+    step. Times each decode on the host clock, synchronised."""
+    import torch
+
+    from bmhrl_tpu_torch.data.vocab import BOS, EOS, PAD
+    from bmhrl_tpu_torch.ops import _cuda
+    from bmhrl_tpu_torch.train.decode import _fast_loop, decode
+
+    B = feats["rgb"].shape[0]
+
+    def old_loop():
+        Va, Av = model.encode(feats["rgb"] + feats["flow"], feats["audio"],
+                              masks)
+        return _fast_loop(*model.fast_setup(Va, Av, masks, B, max_len + 1),
+                          B, max_len, BOS, EOS, PAD, True, None,
+                          (1.0, 0, 0.0))
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():
+        (want_t, want_p), old_s = timed(old_loop)
+        _cuda.reset_launches()
+        (body_t, body_p), body_s = timed(lambda: decode(
+            model, feats, masks, max_len, BOS, EOS, PAD))
+        eager = dict(_cuda.LAUNCHES)
+        # a first capture runs one token eagerly before it
+        warm = graphs.stream is None
+        before = (graphs.captures, graphs.replays)
+        _cuda.reset_launches()
+        (got_t, got_p), graph_s = timed(lambda: decode(
+            model, feats, masks, max_len, BOS, EOS, PAD, graphs=graphs))
+        graphed = dict(_cuda.LAUNCHES)
+    captures = graphs.captures - before[0]
+    replays = graphs.replays - before[1]
+    eos = want_t[:, 1:] == EOS
+    steps = int(torch.where(eos.any(1), eos.int().argmax(1) + 1,
+                            max_len).max())
+    rec = {"phase": "graph", "what": what, "B": B,
+           "Sv": feats["rgb"].shape[1], "Sa": feats["audio"].shape[1],
+           "token_steps": steps, "captures": captures, "replays": replays,
+           "tokens_equal": bool(torch.equal(got_t, want_t)),
+           "probs_equal": bool(torch.equal(got_p, want_p)),
+           "body_tokens_equal": bool(torch.equal(body_t, want_t)),
+           "body_probs_equal": bool(torch.equal(body_p, want_p)),
+           "decode_s": {"old_loop": old_s, "body_eager": body_s,
+                        "graphed": graph_s},
+           "launches": {"body_eager": eager, "graphed": graphed}}
+    emit(rec)
+    if not (rec["tokens_equal"] and rec["probs_equal"]
+            and rec["body_tokens_equal"] and rec["body_probs_equal"]):
+        raise AssertionError(f"graphed greedy decode differs: {rec}")
+    if captures != captures_wanted or replays != steps:
+        raise AssertionError(f"{captures} captures, {replays} replays for "
+                             f"{steps} token steps")
+    # the replays count the launches of the kernels they run
+    if (not eager["folded_attend_tc"]
+            or any(n % steps or graphed[k] != n // steps * (steps + warm)
+                   for k, n in eager.items())):
+        raise AssertionError(f"launches of {steps} eager tokens {eager}, "
+                             f"graphed (warm-up token: {warm}) {graphed}")
+    return rec
+
+
+def replayed_rooflines(model, graphs, feats, masks, max_len, tokens=10):
+    """The roofline shares of ``bmhrl::folded_attend`` and of the critic's
+    cells (``bmhrl::lstm_cell_packed`` and ``gru_cell_packed``) in CUDA
+    graph replays, read as the benchmark reads them from eager calls
+    (``benchmark.roofline``'s least time of every call over the device
+    time under it). ``tokens`` eager greedy tokens under the profiler tie
+    each device operation to the ``bmhrl::`` op that launched it; then
+    ``tokens`` replays of the graph of the same shapes, from the same
+    start, run the same operations in the same order (checked by name
+    where an op launched them), and each replayed operation takes the op
+    of the eager operation at its place in the token. Returns and emits
+    both shares, eager and replayed, with the device milliseconds a
+    token."""
+    import bisect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import roofline
+    from bmhrl_tpu_torch.data.vocab import BOS, PAD
+    from bmhrl_tpu_torch.train.decode import greedy_state, greedy_token
+
+    cost = {"bmhrl::folded_attend": roofline.folded_attend_s,
+            "bmhrl::lstm_cell_packed": roofline.lstm_cell_s,
+            "bmhrl::gru_cell_packed": roofline.gru_cell_s}
+    group = {"bmhrl::folded_attend": "folded_attend",
+             "bmhrl::lstm_cell_packed": "critic_cells",
+             "bmhrl::gru_cell_packed": "critic_cells"}
+    B = feats["rgb"].shape[0]
+    cpu = torch.autograd.DeviceType.CPU
+
+    def device_ops(prof):
+        """The device operations in order of start: (name, ns, op) with
+        op (name, shapes) of the ``bmhrl::`` call that launched it."""
+        cpu_at, calls, device = {}, {}, []
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != cpu:
+                annotation = (e.is_user_annotation()
+                              if hasattr(e, "is_user_annotation") else
+                              "annotation" in e.activity_type())
+                if not annotation:
+                    device.append((e.start_ns(), e.end_ns(), e.name(),
+                                   e.linked_correlation_id()))
+                continue
+            tid = e.start_thread_id()
+            cpu_at[e.correlation_id()] = (tid, e.start_ns())
+            if e.name() in cost:
+                calls.setdefault(tid, []).append(
+                    (e.start_ns(), e.end_ns(), e.name(), e.shapes()))
+        for c in calls.values():
+            c.sort()
+        out = []
+        for s, t, name, corr in sorted(device):
+            op, at = None, cpu_at.get(corr)
+            if at is not None and at[0] in calls:
+                c = calls[at[0]]
+                i = bisect.bisect_right([x[0] for x in c], at[1]) - 1
+                if i >= 0 and c[i][1] >= at[1]:
+                    op = (c[i][2], c[i][3])
+            out.append((name, t - s, op))
+        return out
+
+    def profiled(run):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            for _ in range(tokens):
+                run()
+            torch.cuda.synchronize()
+        return device_ops(prof)
+
+    with torch.no_grad():
+        Va, Av = model.encode(feats["rgb"] + feats["flow"], feats["audio"],
+                              masks)
+
+        def fresh():
+            return greedy_state(*model.fast_state(Va, Av, masks, B,
+                                                  max_len + 1),
+                                B, max_len, BOS, PAD)
+
+        def token_on(state):
+            return lambda: greedy_token(state, model.fast_step, -1, PAD)
+
+        eager = profiled(token_on(fresh()))
+        _, replay = graphs.bind(fresh(), token_on, "rooflines")
+        replayed = profiled(replay)
+    k = len(eager) // tokens
+    if len(eager) != k * tokens or len(replayed) != len(eager):
+        raise AssertionError(f"{len(eager)} eager and {len(replayed)} "
+                             f"replayed device operations in {tokens} "
+                             "tokens")
+    places = [op for _, _, op in eager[:k]]
+    unlike = [i for i, (a, b) in enumerate(zip(eager, replayed))
+              if a[0] != b[0]]
+    if any(places[i % k] for i in unlike) or any(
+            (op is None) != (places[i % k] is None)
+            or (op and op[0] != places[i % k][0])
+            for i, (_, _, op) in enumerate(eager)):
+        raise AssertionError("the replayed token's operations are not the "
+                             "eager token's where an op launched them")
+    rec = {"phase": "graph", "what": "rooflines", "B": B,
+           "Sv": feats["rgb"].shape[1], "Sa": feats["audio"].shape[1],
+           "tokens": tokens, "device_ops_a_token": k,
+           "names_unlike_elsewhere": len(unlike)}
+    for g in sorted(set(group.values())):
+        least = sum(cost[op[0]](op[1]) for _, _, op in eager
+                    if op and group[op[0]] == g)
+        for how, ops in (("eager", eager), ("replayed", replayed)):
+            ns = sum(d for i, (_, d, _) in enumerate(ops)
+                     if places[i % k] and group[places[i % k][0]] == g)
+            rec[f"{g}_roofline_{how}"] = 100.0 * least / (ns / 1e9)
+            rec[f"{g}_device_ms_a_token_{how}"] = ns / 1e6 / tokens
+    for how, ops in (("eager", eager), ("replayed", replayed)):
+        rec[f"device_ms_a_token_{how}"] = sum(d for _, d, _ in ops) / 1e6 \
+            / tokens
+    emit(rec)
+    return rec
+
+
+def phase_graph(K):
+    """The greedy token as one CUDA graph replay a token: the flagship at
+    B=256 in the (32, 64) bucket, at a power-of-2 tail (B=32) and at B=256
+    again on other clips (the kept graph), through one ``TokenGraphs`` (its
+    first capture warms the capture stream), and the DETR at B=256
+    through its own; each bit-equal to the eager loops
+    (``graphed_vs_eager``). Then, on the host clock, a capture, a kept
+    graph taking a new start, a replayed token and an eager token; and the
+    rooflines of ``folded_attend`` and the cells in replays
+    (``replayed_rooflines``)."""
+    import torch
+
+    from bmhrl_tpu_torch.config import Config
+    from bmhrl_tpu_torch.data.vocab import BOS, PAD
+    from bmhrl_tpu_torch.ops.masking import make_masks
+    from bmhrl_tpu_torch.train.decode import (TokenGraphs, decode,
+                                              greedy_state, greedy_token)
+
+    cfg = Config()
+    model = build_model(cfg.agent_kwargs(VOC), "cuda")
+    graphs = TokenGraphs()
+    for B, seed, new in ((256, 256, 1), (32, 32, 1), (256, 11, 0)):
+        feats = make_feats(B, 32, 64, 1024, 128, "cuda", seed=seed)
+        graphed_vs_eager(model, feats, make_masks(feats), cfg.max_len,
+                         graphs, f"flagship B={B} seed {seed}", new)
+
+    # at B=256, (32, 64): a capture, a kept graph taking a new start, a
+    # replayed token, an eager token, and the graphed decode of 30 tokens
+    feats = make_feats(256, 32, 64, 1024, 128, "cuda", seed=3)
+    masks = make_masks(feats)
+    with torch.no_grad():
+        Va, Av = model.encode(feats["rgb"] + feats["flow"], feats["audio"],
+                              masks)
+
+        def fresh():
+            return greedy_state(*model.fast_state(Va, Av, masks, 256,
+                                                  cfg.max_len + 1),
+                                256, cfg.max_len, BOS, PAD)
+
+        def token_on(state):
+            return lambda: greedy_token(state, model.fast_step, -1, PAD)
+
+        def host_ms(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0), out
+
+        caps, binds, replay, eager = [], [], [], []
+        for i in range(5):
+            caps.append(host_ms(lambda: graphs.bind(fresh(), token_on,
+                                                    ("timing", i)))[0])
+            start = fresh()
+            ms, (_, run) = host_ms(lambda: graphs.bind(start, token_on,
+                                                       ("timing", i)))
+            binds.append(ms)
+            replay += [host_ms(run)[0] for _ in range(10)]
+            own = token_on(fresh())
+            eager += [host_ms(own)[0] for _ in range(5)]
+        loops = [host_ms(lambda: decode(model, feats, masks, cfg.max_len,
+                                        BOS, -1, PAD, graphs=graphs))[0]
+                 for _ in range(3)]
+    emit({"phase": "graph", "B": 256, "Sv": 32, "Sa": 64,
+          "capture_ms": caps, "kept_graph_new_start_ms": binds,
+          "replayed_token_ms_median": statistics.median(replay),
+          "eager_token_ms_median": statistics.median(eager),
+          "graphed_decode_30_tokens_ms": loops,
+          "captures": graphs.captures, "replays": graphs.replays,
+          "kept_graphs_bytes": graphs.nbytes()})
+    replayed_rooflines(model, graphs, feats, masks, cfg.max_len)
+    del model, graphs
+    torch.cuda.empty_cache()
+
+    detr = build_detr(dict(voc_size=VOC), "cuda").eval().requires_grad_(
+        False)
+    feats = detr_feats(256, 1024, "cuda", seed=256, Sv=32, Sa=64)
+    graphed_vs_eager(detr, feats, make_masks(feats), cfg.max_len,
+                     TokenGraphs(), "DETR B=256")
+    del detr
+    torch.cuda.empty_cache()
 
 
 def device_groups(prof):
@@ -4873,6 +5162,7 @@ def main() -> int:
               ("reference", lambda: phase_reference(K)),
               ("serve", lambda: made.update(serve=phase_serve(K))),
               ("decode_modes", lambda: phase_decode_modes(K, made["serve"])),
+              ("graph", lambda: phase_graph(K)),
               ("entry_points", lambda: phase_entry_points(K, made["serve"])),
               ("train", lambda: made.update(train=phase_train(K))),
               ("train_loop",

@@ -330,23 +330,33 @@ def serve_rank(mesh, dims, tree, cfg_fields, itos, runs):
 
 # ---- serving AOT bundles -------------------------------------------------------
 def recorded_log_probs(log):
-    """Patches of the decode's two host loops (``train.decode``'s, which the
-    live server reaches, and ``serve_export``'s names of them) whose step
-    functions append each token's log-probs to ``log``."""
+    """Patches of the decode's host loops (``train.decode``'s, which the
+    live server reaches, its greedy token and ``serve_export``'s names of
+    the loops) whose step functions append each token's log-probs to
+    ``log``."""
     from contextlib import ExitStack
     from unittest import mock
 
     from bmhrl_tpu_torch import serve_export
     from bmhrl_tpu_torch.train import decode
 
+    def recorded(step_fn):
+        def step(*a):
+            logits, caches = step_fn(*a)
+            log.append(logits.clone())
+            return logits, caches
+
+        return step
+
     def recording(loop):
         def run(caches, valid, step_fn, *args, **kw):
-            def step(*a):
-                logits, caches = step_fn(*a)
-                log.append(logits.clone())
-                return logits, caches
+            return loop(caches, valid, recorded(step_fn), *args, **kw)
 
-            return loop(caches, valid, step, *args, **kw)
+        return run
+
+    def recording_token(token):
+        def run(state, step, *args):
+            return token(state, recorded(step), *args)
 
         return run
 
@@ -355,6 +365,8 @@ def recorded_log_probs(log):
         loop = recording(getattr(decode, name))
         for module in (decode, serve_export):
             stack.enter_context(mock.patch.object(module, name, loop))
+    stack.enter_context(mock.patch.object(
+        decode, "greedy_token", recording_token(decode.greedy_token)))
     return stack
 
 
