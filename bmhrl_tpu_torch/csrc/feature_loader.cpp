@@ -4,7 +4,8 @@
 // slice semantics), truncated to the batch's bucket and zero-padded up to it,
 // as features.load_features_from_npy followed by features.pad_stack gives
 // them, bit for bit. Only the rows that survive the crop and the bucket are
-// read.
+// read. A second entry gives the serving plan each file's row count from
+// its header alone, with the same parser.
 //
 // Plain C interface for ctypes (data/feature_reader.py), which releases the
 // interpreter lock for the length of a call. The call runs on its own
@@ -31,7 +32,7 @@
 namespace {
 
 enum Status : int32_t { OK = 0, MISMATCH = 1, PYTHON = 2 };
-enum Found { FOUND, MISSING, OTHER };
+enum Found : int32_t { FOUND = 0, MISSING = 1, OTHER = 2 };
 
 constexpr size_t kMaxHeader = 10000;  // numpy's max_header_size
 
@@ -303,6 +304,23 @@ Status ReadRow(const Batch& b, int64_t i) {
   return OK;
 }
 
+// Runs work() on min(threads, items) threads, this one among them; fewer
+// where the system refuses a thread, this one working through the rest.
+template <typename Work>
+void RunOnThreads(int32_t threads, int32_t items, const Work& work) {
+  std::vector<std::thread> pool;
+  const int32_t extra = std::min(std::max(threads, 1), std::max(items, 1)) - 1;
+  for (int32_t k = 0; k < extra; ++k) {
+    try {
+      pool.emplace_back(work);
+    } catch (const std::system_error&) {
+      break;
+    }
+  }
+  work();
+  for (auto& th : pool) th.join();
+}
+
 }  // namespace
 
 extern "C" {
@@ -334,21 +352,28 @@ int32_t read_feature_batch(int32_t n_req, int32_t n_rows,
       if (status[i] == PYTHON) python.store(true);
     }
   };
-  std::vector<std::thread> pool;
-  const int32_t extra = std::min(std::max(threads, 1), std::max(n_rows, 1)) - 1;
-  for (int32_t k = 0; k < extra; ++k) {
-    try {
-      pool.emplace_back(work);
-    } catch (const std::system_error&) {
-      break;  // fewer threads; this one works through the rest
-    }
-  }
-  work();
-  for (auto& th : pool) th.join();
+  RunOnThreads(threads, n_rows, work);
   if (python.load()) return PYTHON;
   int32_t worst = OK;
   for (int32_t i = 0; i < n_req; ++i) worst = std::max(worst, status[i]);
   return worst;
+}
+
+// The row count of each of n .npy files from its header alone, on up to
+// `threads` threads: status[i] is FOUND (rows[i] set: a file the reader
+// takes), MISSING (open() found no file) or OTHER (any other file or
+// failure, for the caller to decide).
+void probe_feature_rows(int32_t n, const char* const* paths, int32_t threads,
+                        int64_t* rows, int32_t* status) {
+  std::atomic<int32_t> next{0};
+  auto work = [&] {
+    for (int32_t i = next.fetch_add(1); i < n; i = next.fetch_add(1)) {
+      Npy f;
+      status[i] = f.Open(paths[i]);
+      rows[i] = f.rows;
+    }
+  };
+  RunOnThreads(threads, n, work);
 }
 
 }  // extern "C"

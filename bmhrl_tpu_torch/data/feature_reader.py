@@ -14,13 +14,16 @@ with any other file, or any failure but a missing file, ``read_batch``
 returns None and the caller loads that batch by the Python path, which
 then loads or raises as it always has. It also returns None where the
 library cannot be built (no compiler).
+
+``probe_rows`` gives the serving plan each file's row count from the same
+header parser, in one call for all of a request list's files.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +32,8 @@ from bmhrl_tpu_torch.native import HostLibrary
 
 # read_feature_batch's statuses besides 0 (read)
 MISMATCH, PYTHON = 1, 2
+# probe_rows' statuses: a file the reader takes, no file, any other
+FOUND, MISSING, OTHER = 0, 1, 2
 # one request: video_dir, audio_dir, video_id, start, end, duration
 Request = Tuple[str, str, str, float, float, float]
 
@@ -41,6 +46,10 @@ def _declare(lib) -> None:
         ctypes.POINTER(ctypes.c_double), i32, i32, i32, i32, f32p, f32p,
         f32p, i32, ctypes.POINTER(ctypes.c_int32), i64p]
     lib.read_feature_batch.restype = i32
+    lib.probe_feature_rows.argtypes = [
+        i32, ctypes.POINTER(ctypes.c_char_p), i32, i64p,
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.probe_feature_rows.restype = None
 
 
 _LIB = HostLibrary(
@@ -63,6 +72,30 @@ def _exact(t) -> bool:
 
 def _ptr(t: torch.Tensor):
     return ctypes.cast(t.data_ptr(), ctypes.POINTER(ctypes.c_float))
+
+
+def probe_rows(paths: Sequence[str], threads: int
+               ) -> Optional[List[Tuple[int, int]]]:
+    """(status, rows) of each ``.npy`` file of ``paths``, from its header
+    alone, read on ``threads`` threads: FOUND with the row count of a file
+    the reader takes (2-D little-endian float32 in C order, whole), MISSING
+    where no file is found, OTHER for every other file, whose row count the
+    caller has to get by numpy. None where the library cannot be built or
+    a path holds a NUL byte."""
+    lib = _LIB.load()
+    if lib is None:
+        return None
+    raw = [os.fsencode(p) for p in paths]
+    if any(b"\0" in p for p in raw):  # open() raises on these
+        return None
+    n = len(raw)
+    rows = np.zeros(n, np.int64)
+    status = np.zeros(n, np.int32)
+    lib.probe_feature_rows(
+        n, (ctypes.c_char_p * n)(*raw), max(int(threads), 1),
+        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        status.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return list(zip(status.tolist(), rows.tolist()))
 
 
 def read_batch(requests: Sequence[Request], rows: int, vb: int, ab: int,

@@ -2,7 +2,10 @@
 sampled or beam-search captions.
 
 - Requests are bucketed by their post-crop feature lengths, probed from the
-  ``.npy`` headers alone, so short clips never pay dataset-max padding.
+  ``.npy`` headers alone, so short clips never pay dataset-max padding. The
+  C++ reader's header parser (``data.feature_reader.probe_rows``) gives
+  every file's row count in one call; a file it leaves to numpy takes
+  ``_npy_rows`` (``ServeStats.probe_python_files`` counts those).
 - A bucket pair's tail batch is row-padded with zero rows up to the next
   power of two. The padding rows match the JAX server's: they reach valid
   rows through the Manager's cross-row goal expansion
@@ -36,11 +39,11 @@ as ``utils.profiling.StepTimer().phase``; by default
 ``utils.profiling.no_spans``, which records nothing) goes to the decode
 loops (``decode.setup``, ``decode.capture``, ``decode.step``,
 ``decode.sync``) and the ``Prefetcher`` (``serve.stage``, on its thread),
-and ``caption`` opens ``serve.load`` around each batch's loading (on the
-``Prefetcher``'s thread), ``serve.batch_wait`` around the dispatching
-thread's wait for it and ``serve.fetch`` around the copy of its tokens to
-the host and their words. A span adds no sync and changes nothing
-computed.
+and ``caption`` opens ``serve.plan`` around ``plan_batches``,
+``serve.load`` around each batch's loading (on the ``Prefetcher``'s
+thread), ``serve.batch_wait`` around the dispatching thread's wait for it
+and ``serve.fetch`` around the copy of its tokens to the host and their
+words. A span adds no sync and changes nothing computed.
 
 Data parallel (``mesh``, ``parallel.mesh``; every rank runs the server on
 the same requests): a batch of ``inference_batch_size`` (the global batch)
@@ -106,6 +109,8 @@ class ServeStats:
     native_batches: int = 0  # read by the C++ reader; not in summary()
     graph_captures: int = 0  # greedy token graphs captured; not in summary()
     graph_replays: int = 0  # their replays, one a token; not in summary()
+    # files whose rows the plan read by numpy (_npy_rows); not in summary()
+    probe_python_files: int = 0
 
     def summary(self) -> Dict:
         """The JAX server's summary: same keys, same rounding."""
@@ -191,10 +196,37 @@ def _feature_paths(r: ClipRequest, cfg: Config) -> Tuple[str, str]:
             os.path.join(adir, f"{r.video_id}.npy"))
 
 
-def plan_batches(reqs: Sequence[ClipRequest], cfg: Config, batch_size: int
+def _probe_rows(paths: List[str], threads: int,
+                stats: Optional[ServeStats]) -> Dict[str, Optional[int]]:
+    """Each file's row count (None: no such file, as ``_npy_rows`` gives
+    it): from the C++ reader's header parser in one call on ``threads``
+    threads, and by ``_npy_rows``, one file after another, for the files
+    the parser leaves to numpy, or all of them where the library cannot be
+    built. ``stats.probe_python_files`` counts the latter."""
+    probed = feature_reader.probe_rows(paths, threads)
+    if probed is None:
+        probed = [(feature_reader.OTHER, 0)] * len(paths)
+    rows, python = {}, 0
+    for path, (status, n) in zip(paths, probed):
+        if status == feature_reader.FOUND:
+            rows[path] = n
+        elif status == feature_reader.MISSING:
+            rows[path] = None
+        else:
+            rows[path] = _npy_rows(path)
+            python += 1
+    if stats is not None:
+        stats.probe_python_files += python
+    return rows
+
+
+def plan_batches(reqs: Sequence[ClipRequest], cfg: Config, batch_size: int,
+                 io_threads: int = 8, stats: Optional[ServeStats] = None
                  ) -> List[Tuple[List[int], int, int]]:
     """Group request indices into (idxs, video_bucket, audio_bucket) batches,
-    bucketed by post-crop lengths; order is kept within a bucket pair."""
+    bucketed by post-crop lengths; order is kept within a bucket pair. The
+    row counts are probed once a call, on ``io_threads`` threads
+    (``_probe_rows``; counted in ``stats``), and kept by no later call."""
     bad = [i for i, r in enumerate(reqs) if r.duration <= 0]
     if bad:
         ex = reqs[bad[0]]
@@ -203,8 +235,7 @@ def plan_batches(reqs: Sequence[ClipRequest], cfg: Config, batch_size: int
             f"{bad[0]}, video_id={ex.video_id!r}, duration={ex.duration}); "
             "fix or drop them before serving")
     paths = sorted({p for r in reqs for p in _feature_paths(r, cfg)})
-    with ThreadPoolExecutor(max_workers=8) as probe_pool:
-        rows = dict(zip(paths, probe_pool.map(_npy_rows, paths)))
+    rows = _probe_rows(paths, io_threads, stats)
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for i, r in enumerate(reqs):
         vpath, apath = _feature_paths(r, cfg)
@@ -354,8 +385,9 @@ class CaptionServer:
         """Caption every request. Returns (ANet submission dict, stats)."""
         cfg, spans = self.cfg, self.spans
         bs = batch_size or max(cfg.inference_batch_size, 1)
-        plan = plan_batches(reqs, cfg, bs)
         stats = ServeStats()
+        with spans("serve.plan"):
+            plan = plan_batches(reqs, cfg, bs, io_threads, stats)
         graphs0 = (self.graphs.captures, self.graphs.replays)
         shapes_seen = set()
         sentences: List[Optional[str]] = [None] * len(reqs)

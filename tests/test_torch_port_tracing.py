@@ -1,9 +1,10 @@
 """The port's spans (``utils.profiling``): a server given a recorder
 (``StepTimer().phase``) serves the tokens it serves without one, bit for
 bit, and its spans count the work done (token steps, stop syncs, batches
-loaded, staged, waited for and fetched); ``StepTimer.phase`` lands in a
-``torch.profiler`` trace; ``serve_captions --profile_dir`` writes the
-trace and prints every serving span. All on the CPU at small serving dims
+loaded, staged, waited for and fetched, one plan a call);
+``StepTimer.phase`` lands in a ``torch.profiler`` trace;
+``serve_captions --profile_dir`` writes the trace and prints every
+serving span. All on the CPU at small serving dims
 with random weights, the port alone."""
 import json
 import os
@@ -29,7 +30,7 @@ TINY = dict(d_model=32, d_model_caps=16, rl_att_heads=2, rl_att_layers=2,
 MAX_LEN, BS = 8, 4
 # the spans of the dispatching thread, and of the Prefetcher's thread
 DISPATCH = ("decode.setup", "decode.step", "decode.sync", "serve.batch_wait",
-            "serve.fetch")
+            "serve.fetch", "serve.plan")
 LOADER = ("serve.load", "serve.stage")
 MODES = {"greedy": {}, "beam2": {"beam_width": 2},
          "sampled": {"sample": True, "top_k": 5}}
@@ -121,6 +122,7 @@ def test_span_counts_match_the_work(served, corpus, mode):
     for name in ("decode.setup", "serve.load", "serve.stage",
                  "serve.batch_wait", "serve.fetch"):
         assert n[name] == stats.batches == 3, name
+    assert n["serve.plan"] == 1  # one plan a caption() call
     # decode.sync wraps the loop's only per-token sync
     assert n["decode.step"] == n["decode.sync"] == syncs
     if mode != "beam2":  # a beam's stop is every beam's, not the best's
@@ -193,6 +195,7 @@ def test_serve_captions_profile_dir(corpus, tmp_path, capsys):
     spans = json.loads(lines[-1])["spans"]
     assert set(spans) == set(DISPATCH + LOADER)
     assert spans["serve.load"]["n"] == 3
+    assert spans["serve.plan"]["n"] == 1
     with open(os.path.join(trace_dir, "serve_trace.json")) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert set(DISPATCH) <= names
